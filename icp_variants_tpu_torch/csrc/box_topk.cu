@@ -24,7 +24,6 @@
 // at that size launch latency dominates.
 #include "common.cuh"
 
-template <int D>
 __global__ void __launch_bounds__(128)
 box_topk_kernel(const float* __restrict__ q, const float* __restrict__ binit,
                 const float* __restrict__ bmin, const float* __restrict__ bmax,
@@ -77,21 +76,14 @@ box_topk_kernel(const float* __restrict__ q, const float* __restrict__ binit,
 
 extern "C" int box_topk_launch(const float* q, const float* binit, const float* bmin,
                                const float* bmax, int32_t* sel, float* resid, int B,
-                               int N, int nc, int D, int k, void* stream) {
+                               int N, int nc, int k, void* stream) {
   if (k < 1 || k > ICP_MAX_K || k > nc) return cudaErrorInvalidValue;
   if (B == 0 || N == 0) return cudaSuccess;
   const size_t smem = 2 * static_cast<size_t>(nc) * D * sizeof(float);
   const dim3 grid((N + 127) / 128, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (D == 3) {
-    if ((err = icp_allow_smem(box_topk_kernel<3>, smem)) != cudaSuccess) return err;
-    box_topk_kernel<3><<<grid, 128, smem, s>>>(q, binit, bmin, bmax, sel, resid, N, nc, k);
-  } else if (D == 6) {
-    if ((err = icp_allow_smem(box_topk_kernel<6>, smem)) != cudaSuccess) return err;
-    box_topk_kernel<6><<<grid, 128, smem, s>>>(q, binit, bmin, bmax, sel, resid, N, nc, k);
-  } else {
-    return cudaErrorInvalidValue;
-  }
+  cudaError_t err = icp_allow_smem(box_topk_kernel, smem);
+  if (err != cudaSuccess) return err;
+  box_topk_kernel<<<grid, 128, smem, s>>>(q, binit, bmin, bmax, sel, resid, N, nc, k);
   return static_cast<int>(cudaGetLastError());
 }

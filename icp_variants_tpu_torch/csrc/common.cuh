@@ -9,6 +9,10 @@
 
 #define ICP_MAX_K 16  // largest top-k block count the kd kernels take
 
+// Coordinates per point. The kernels serve the 3-D matcher; the 6-D colour
+// features of color-ICP are not searched on the card yet.
+constexpr int D = 3;
+
 extern "C" const char* icp_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

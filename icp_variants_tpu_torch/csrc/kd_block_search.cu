@@ -32,7 +32,6 @@
 #define GATE 32
 #define PARTS 4
 
-template <int D>
 __global__ void __launch_bounds__(GATE * PARTS)
 kd_block_search_kernel(const float* __restrict__ q, const int32_t* __restrict__ sel,
                        const float* __restrict__ binit, const float* __restrict__ pages,
@@ -131,24 +130,15 @@ kd_block_search_kernel(const float* __restrict__ q, const int32_t* __restrict__ 
 
 extern "C" int kd_block_search_launch(const float* q, const int32_t* sel, const float* binit,
                                       const float* pages, float* d2, int32_t* idx, int B,
-                                      int N, int nc, int cap_pad, int D, int k,
-                                      void* stream) {
+                                      int N, int nc, int cap_pad, int k, void* stream) {
   if (k < 1 || k > ICP_MAX_K || cap_pad % 4 != 0) return cudaErrorInvalidValue;
   if (B == 0 || N == 0) return cudaSuccess;
   const size_t smem = static_cast<size_t>(D) * cap_pad * sizeof(float);
   const dim3 grid((N + GATE - 1) / GATE, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (D == 3) {
-    if ((err = icp_allow_smem(kd_block_search_kernel<3>, smem)) != cudaSuccess) return err;
-    kd_block_search_kernel<3><<<grid, GATE * PARTS, smem, s>>>(
-        q, sel, binit, pages, d2, idx, N, nc, cap_pad, k);
-  } else if (D == 6) {
-    if ((err = icp_allow_smem(kd_block_search_kernel<6>, smem)) != cudaSuccess) return err;
-    kd_block_search_kernel<6><<<grid, GATE * PARTS, smem, s>>>(
-        q, sel, binit, pages, d2, idx, N, nc, cap_pad, k);
-  } else {
-    return cudaErrorInvalidValue;
-  }
+  cudaError_t err = icp_allow_smem(kd_block_search_kernel, smem);
+  if (err != cudaSuccess) return err;
+  kd_block_search_kernel<<<grid, GATE * PARTS, smem, s>>>(q, sel, binit, pages, d2, idx, N, nc,
+                                                          cap_pad, k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,7 +32,6 @@
 
 #define TQ 128
 
-template <int D>
 __global__ void __launch_bounds__(TQ)
 visited_search_kernel(const float* __restrict__ q, const float* __restrict__ radius,
                       const float* __restrict__ pages, const float* __restrict__ tmin,
@@ -128,23 +127,15 @@ visited_search_kernel(const float* __restrict__ q, const float* __restrict__ rad
 extern "C" int visited_search_launch(const float* q, const float* radius, const float* pages,
                                      const float* tmin, const float* tmax, float* d2,
                                      int32_t* idx, int B, int N, int n_tiles, int tile_t,
-                                     int D, void* stream) {
+                                     void* stream) {
   if (tile_t % 4 != 0) return cudaErrorInvalidValue;
   if (B == 0 || N == 0) return cudaSuccess;
   const size_t smem = static_cast<size_t>(D) * tile_t * sizeof(float);
   const dim3 grid((N + TQ - 1) / TQ, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (D == 3) {
-    if ((err = icp_allow_smem(visited_search_kernel<3>, smem)) != cudaSuccess) return err;
-    visited_search_kernel<3><<<grid, TQ, smem, s>>>(q, radius, pages, tmin, tmax, d2, idx, N,
-                                                    n_tiles, tile_t);
-  } else if (D == 6) {
-    if ((err = icp_allow_smem(visited_search_kernel<6>, smem)) != cudaSuccess) return err;
-    visited_search_kernel<6><<<grid, TQ, smem, s>>>(q, radius, pages, tmin, tmax, d2, idx, N,
-                                                    n_tiles, tile_t);
-  } else {
-    return cudaErrorInvalidValue;
-  }
+  cudaError_t err = icp_allow_smem(visited_search_kernel, smem);
+  if (err != cudaSuccess) return err;
+  visited_search_kernel<<<grid, TQ, smem, s>>>(q, radius, pages, tmin, tmax, d2, idx, N, n_tiles,
+                                               tile_t);
   return static_cast<int>(cudaGetLastError());
 }

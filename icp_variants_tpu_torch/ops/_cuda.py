@@ -39,14 +39,17 @@ NVCC_FLAGS = [
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+# Coordinates per point the kernels take (``D`` in ``csrc/common.cuh``).
+KERNEL_DIM = 3
+
 # kernel name -> (source file, C function, ctypes argtypes)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNELS = {
-    "box_topk": ("box_topk.cu", "box_topk_launch", [_P] * 6 + [_I] * 5 + [_P]),
+    "box_topk": ("box_topk.cu", "box_topk_launch", [_P] * 6 + [_I] * 4 + [_P]),
     "kd_block_search": (
-        "kd_block_search.cu", "kd_block_search_launch", [_P] * 6 + [_I] * 6 + [_P]),
+        "kd_block_search.cu", "kd_block_search_launch", [_P] * 6 + [_I] * 5 + [_P]),
     "visited_search": (
-        "visited_search.cu", "visited_search_launch", [_P] * 7 + [_I] * 5 + [_P]),
+        "visited_search.cu", "visited_search_launch", [_P] * 7 + [_I] * 4 + [_P]),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

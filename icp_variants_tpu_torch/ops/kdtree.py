@@ -230,11 +230,11 @@ def box_topk(
     (B, nc, D). Returns ``sel`` (B, N, k) int32 — the picks in extraction
     order, -1 where the pick's bound exceeds ``binit`` (no member) — and
     ``resid`` (B, N), the (k+1)-th smallest bound (the certificate). A CUDA
-    tensor launches ``csrc/box_topk.cu``; a CPU tensor runs
+    tensor launches ``csrc/box_topk.cu`` (D = 3 only); a CPU tensor runs
     :func:`box_topk_plain`."""
     if q.device.type == "cpu":
         return box_topk_plain(q, binit, bmin, bmax, k)
-    b, n, d = q.shape
+    b, n, d = q.shape[0], q.shape[1], _cuda.KERNEL_DIM
     nc = bmin.shape[1]
     chk = _cuda.check_cuda_tensor
     chk("q", q, torch.float32, (b, n, d))
@@ -243,7 +243,7 @@ def box_topk(
     chk("bmax", bmax, torch.float32, (b, nc, d))
     sel = torch.empty((b, n, k), dtype=torch.int32, device=q.device)
     resid = torch.empty((b, n), dtype=torch.float32, device=q.device)
-    _cuda.launch("box_topk", q, binit, bmin, bmax, sel, resid, b, n, nc, d, k)
+    _cuda.launch("box_topk", q, binit, bmin, bmax, sel, resid, b, n, nc, k)
     return sel, resid
 
 
@@ -284,11 +284,11 @@ def kd_block_search(
     lowest slot. Returns ``(d2, idx)``, (B, N) each: idx is the pair-local
     page index ``block * cap_pad + slot`` (-1 if nothing beat ``binit``,
     and d2 is then ``binit``). A CUDA tensor launches
-    ``csrc/kd_block_search.cu``; a CPU tensor runs
+    ``csrc/kd_block_search.cu`` (D = 3 only); a CPU tensor runs
     :func:`kd_block_search_plain`."""
     if q.device.type == "cpu":
         return kd_block_search_plain(q, sel, binit, pages)
-    b, n, d = q.shape
+    b, n, d = q.shape[0], q.shape[1], _cuda.KERNEL_DIM
     k = sel.shape[-1]
     nc, cap_pad = pages.shape[1], pages.shape[-1]
     chk = _cuda.check_cuda_tensor
@@ -298,7 +298,7 @@ def kd_block_search(
     chk("pages", pages, torch.float32, (b, nc, 8, cap_pad))
     d2 = torch.empty((b, n), dtype=torch.float32, device=q.device)
     idx = torch.empty((b, n), dtype=torch.int32, device=q.device)
-    _cuda.launch("kd_block_search", q, sel, binit, pages, d2, idx, b, n, nc, cap_pad, d, k)
+    _cuda.launch("kd_block_search", q, sel, binit, pages, d2, idx, b, n, nc, cap_pad, k)
     return d2, idx
 
 

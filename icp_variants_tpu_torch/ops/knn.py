@@ -84,17 +84,16 @@ def morton_codes_np(points, valid_mask=None):
 
 class TargetIndex(NamedTuple):
     """Tile-bbox search structure over a target cloud (the ``buildIndex``
-    phase, NearestNeighbor.h:122-141); fields as in the JAX package, with
-    an optional leading pair axis. ``points_t3`` pages carry
-    ``0.5*|t|^2`` in feature row ``FEATURE_PAD-1`` (unused by the
-    direct-difference search)."""
+    phase, NearestNeighbor.h:122-141); the JAX package's fields but its
+    ``norm2`` (and the ``0.5*|t|^2`` feature row of its pages), which only
+    its expanded-distance kernels read, with an optional leading pair
+    axis."""
 
     points: torch.Tensor     # (..., Nt_pad, 8) feature-padded rows
     points_t3: torch.Tensor  # (..., n_tiles, 8, tile_t) feature-major pages
     perm: torch.Tensor       # (..., Nt_pad) int32 tiled position -> original row
     bbox_min: torch.Tensor   # (..., n_tiles, 8)
     bbox_max: torch.Tensor   # (..., n_tiles, 8)
-    norm2: torch.Tensor      # (..., 1, Nt_pad)
 
 
 def build_target_index(targets: torch.Tensor, *, tile_t: int = V2_TILE_T) -> TargetIndex:
@@ -104,18 +103,13 @@ def build_target_index(targets: torch.Tensor, *, tile_t: int = V2_TILE_T) -> Tar
     lead = t.shape[:-2]
     n_tiles = t.shape[-2] // tile_t
     tiles = t.reshape(*lead, n_tiles, tile_t, FEATURE_PAD)
-    half_norm2 = 0.5 * torch.sum(t[..., :-1] * t[..., :-1], dim=-1)
-    t_aug = t.clone()
-    t_aug[..., FEATURE_PAD - 1] = half_norm2
-    tiles_aug = t_aug.reshape(*lead, n_tiles, tile_t, FEATURE_PAD)
     perm = torch.arange(t.shape[-2], dtype=torch.int32, device=t.device)
     return TargetIndex(
         points=t,
-        points_t3=tiles_aug.transpose(-1, -2).contiguous(),
+        points_t3=tiles.transpose(-1, -2).contiguous(),
         perm=perm.expand(*lead, -1).contiguous(),
         bbox_min=torch.amin(tiles, dim=-2),
         bbox_max=torch.amax(tiles, dim=-2),
-        norm2=torch.sum(t * t, dim=-1).unsqueeze(-2),
     )
 
 
@@ -163,11 +157,11 @@ def visited_search(
     ``queries`` (B, N, d) f32, ``radius`` (B, N) f32 (negative = frozen).
     Returns ``(d2, idx)``, (B, N) each: idx is the tiled position (map
     through ``index.perm``), -1 where nothing beats the radius, and d2 is
-    then the radius. A CUDA tensor launches ``csrc/visited_search.cu``; a
-    CPU tensor runs :func:`visited_search_plain`."""
+    then the radius. A CUDA tensor launches ``csrc/visited_search.cu``
+    (d = 3 only); a CPU tensor runs :func:`visited_search_plain`."""
     if queries.device.type == "cpu":
         return visited_search_plain(queries, radius, index)
-    b, n, d = queries.shape
+    b, n, d = queries.shape[0], queries.shape[1], _cuda.KERNEL_DIM
     n_tiles, tile_t = index.points_t3.shape[-3], index.points_t3.shape[-1]
     chk = _cuda.check_cuda_tensor
     chk("queries", queries, torch.float32, (b, n, d))
@@ -179,7 +173,7 @@ def visited_search(
     idx = torch.empty((b, n), dtype=torch.int32, device=queries.device)
     _cuda.launch(
         "visited_search", queries, radius, index.points_t3, index.bbox_min,
-        index.bbox_max, d2, idx, b, n, n_tiles, tile_t, d,
+        index.bbox_max, d2, idx, b, n, n_tiles, tile_t,
     )
     return d2, idx
 

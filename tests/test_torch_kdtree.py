@@ -95,9 +95,14 @@ def test_build_target_index_matches_jax():
     _, t = _clouds(n_t=3000, seed=2)
     jt = jknn.build_target_index(jnp.asarray(t), tile_t=jknn.V2_TILE_T)
     tt = tknn.build_target_index(torch.from_numpy(t), tile_t=tknn.V2_TILE_T)
-    for name in jt._fields:
-        np.testing.assert_allclose(getattr(tt, name).numpy(), _n(getattr(jt, name)),
-                                   rtol=1e-6, err_msg=name)
+    assert tt._fields == tuple(f for f in jt._fields if f != "norm2")
+    for name in tt._fields:
+        got, want = getattr(tt, name).numpy(), _n(getattr(jt, name))
+        if name == "points_t3":
+            # JAX's last feature row holds 0.5*|t|^2 for its expanded-distance
+            # kernels; the port's pages hold the plain padded rows there.
+            got, want = got[:, :-1], want[:, :-1]
+        np.testing.assert_array_equal(got, want, err_msg=name)
 
 
 @pytest.mark.parametrize("k", [4, 1])
