@@ -8,37 +8,58 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, in order; any failure exits nonzero:
 
 1. Set-up: fail at once without a CUDA device; TF32 off for matmul and
-   cuDNN; the card's name and power limit; build the kernels from
-   ``icp_variants_tpu_torch/csrc`` (nvcc, first use) and print the time.
-2. Each kernel against its plain PyTorch version at the main path's
-   shapes (16 pairs x 4,352 queries on 365,056-point targets), plus the
-   fallback search and the exact-arm matcher against scipy's cKDTree.
-   Median times of kernel and plain version, with CUDA events.
-3. The main path: ``run_icp_batch`` on the ETH headline configuration
+   cuDNN; the card's name and power limit; build the four kernels from
+   ``icp_variants_tpu_torch/csrc`` (nvcc, one per source in parallel) and
+   print the time.
+2. ETH kernels (D = 3): each kernel against its plain PyTorch version at
+   the ETH path's shapes (16 pairs x 4,352 queries on 365,056-point
+   targets), plus the fallback search and the exact-arm matcher against
+   scipy's cKDTree. Median times of kernel and plain version, CUDA events.
+3. The ETH path: ``run_icp_batch`` on the ETH headline configuration
    (symmetric linear ICP, p = 0.01 Bernoulli selection, max squared
    distance 10, 50 iterations) over 16 synthetic pairs of 365,000 points,
    both matching arms (exact: top-4 blocks + certificate + fallback;
-   FLANN-parity: checks=16). One warm-up run per arm, then five timed
-   runs per arm taken in turns (median pairs/s; launches counted on each
-   arm's first); the mean translation / rotation error against the known
-   perturbations. A mean translation error above 1 cm (the gross-failure
-   gate) or above 0.01 mm (the gate set from the card's readings) fails, and
-   so does a disagreement with cKDTree of the arm's matcher at pair 0's
-   final pose. After every timed run, one profiled run per arm: device time
-   by kernel and the device busy share.
-4. Launch counts of each kernel during the timed main-path runs; fails
-   unless box_topk and kd_block_search ran every iteration of both arms
-   and visited_search ran at least once.
+   FLANN-parity: checks=16). One warm-up run per arm, then timed runs per
+   arm taken in turns (median pairs/s; launches counted on each arm's
+   first); the mean translation / rotation error against the known
+   perturbations, gated at 1 cm and at 0.01 mm, and each arm's matcher at
+   pair 0's final pose against cKDTree. One profiled run per arm.
+4. The colour path: the dense colour-multires tracker (the JAX package's
+   ``bench.bench_color_multires`` / ``measure_color_accuracy``): 8
+   synthetic 640 x 480 RGB-D frames (307,200 rows each, 6-dim colour
+   Morton order) tracked against frame 0 by
+   ``run_icp_batch_multires_segmented``: point-to-plane linear ICP, 35
+   iterations, squared max distance 0.1 in the 6-dim feature space,
+   SELECT_ALL; exact arm (128 kd blocks) and checks16 arm (256 kd blocks,
+   the stride-1 level seeded from the stride-2 level's blocks). A warm-up
+   run per arm; then every kernel at D = 6 against its plain version at the
+   full fine-level shapes, 8 x 307,200 rows at the warm-up's final poses
+   (-1 rows included; the plain versions in windows of rows;
+   visited_search at the exact arm's real fallback radii, and all rows live
+   on a subset), each timed there; then timed runs in turns (median
+   frames/s, launches on each arm's first), one profiled run per arm, the
+   mean translation / rotation error against the known camera shifts
+   (gated at 1 cm and at a tighter gate set from the card's readings), at
+   frame 0's final pose each arm's matcher against cKDTree over the 6-dim
+   target features, and the fixed point: one more stride-1 step at each
+   arm's final pose, solved in f64 on the same matches, must barely move
+   any frame. Two probes read the gates' reach: the checks16 arm with TF32
+   in the normal-equation product, and with a planted fault in the seeded
+   search, which must cross a gate.
+5. The record: launches of each kernel on the main paths (the ETH arms
+   and the colour arms); fails unless each ran where its path needs it.
 
 It prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
 power limit line, and as its last line ``{"ok": true, "device": {...}}``.
-The synthetic data (``synth_cloud``, ``eth_true_pose``, ``make_pairs``) are
+The synthetic data (``synth_cloud``, ``eth_true_pose``, ``make_pairs``,
+``synth_depth_frame``, ``prepare_tum_state``, ``tum_base_config``) are
 copies of ``bench.py``'s, with the same seeds; this script imports neither
 JAX nor the JAX package.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import subprocess
@@ -65,6 +86,35 @@ PEAK_BYTES = 3.35e12
 # or a matcher fault in a later iteration moves the error past it.
 T_ERR_LIMIT_M = 0.01
 T_ERR_TIGHT_M = 1e-5
+
+# The colour-multires tracker (bench.py:359-365, main.cpp:236-266).
+TUM_W, TUM_H = 640, 480
+TUM_FX = TUM_FY = 525.0
+TUM_CX, TUM_CY = 319.5, 239.5
+TUM_ITERATIONS = 35
+TUM_MAX_DISTANCE = 0.1
+TUM_BATCH_FRAMES = 8
+TUM_SHIFT = 0.01
+# Mean translation error gates of the colour arms: 1 cm for a gross
+# failure, and 1.2 mm, set from the card's readings (0.995 mm exact, 0.957
+# mm checks16; the JAX package's TPU record is about 1 mm on both). That
+# error is the algorithm's own on these frames (a planted matcher fault
+# read 1.01 mm), so the tight gate is the fixed point's: one more stride-1
+# step at each arm's final pose, solved in f64 on the same matches, must
+# move no frame by more than FIXED_POINT_T_M (card readings 1.0e-7 m on
+# both arms; the planted fault read 2.6e-4 m), and the f32 solve of that
+# step must agree with the f64 one within SOLVE_GAP_T_M (readings 4e-8 to
+# 6e-8).
+COLOR_T_ERR_TIGHT_M = 1.2e-3
+FIXED_POINT_T_M = 1e-6
+SOLVE_GAP_T_M = 1e-6
+# Rows per frame in each window of a plain version's pass over the full
+# 8 x 307,200 rows (one unwindowed call of the plain kd_block_search would
+# gather 570 GB).
+PLAIN_CHUNK_ROWS = 2048
+# Rows per frame of the all-live visited_search comparison: four windows
+# of 512 consecutive rows (all rows live at full size is impractical).
+SUBSET_WINDOW, SUBSET_WINDOWS = 512, 4
 
 
 def synth_cloud(n, seed):
@@ -125,7 +175,8 @@ def rotation_error_deg(R):
 
 def profile_run(fn, wall_s: float, top: int = 8) -> dict:
     """Device time of one more run of ``fn`` under ``torch.profiler``:
-    total kernel time, kernel launches, the ``top`` kernels by time, and
+    total kernel time, kernel launches, the ``top`` kernel names by time
+    (names cut to 90 characters, times of equal cut names summed), and
     the device busy share = kernel time / ``wall_s`` (the unprofiled run's
     wall time; the profiler slows the host, not the kernels)."""
     import torch
@@ -139,13 +190,110 @@ def profile_run(fn, wall_s: float, top: int = 8) -> dict:
     total_us = sum(e.self_device_time_total for e in kernels)
     if total_us <= 0:
         return {"device_ms": "not measured"}
-    by_name = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.key[:90]] += e.self_device_time_total / 1e3
     return {
         "device_ms": total_us / 1e3,
         "device_busy_share": total_us / 1e6 / wall_s,
         "kernel_launches": int(sum(e.count for e in kernels)),
-        "device_ms_by_kernel": {e.key[:90]: e.self_device_time_total / 1e3 for e in by_name},
+        "device_ms_by_kernel": dict(by_name.most_common(top)),
     }
+
+
+def synth_depth_frame(i):
+    """Indoor-like 640x480 depth frame: wavy surface + raised boxes
+    (furniture with sharp depth steps -> invalid normals at the edges),
+    viewed from a camera at x = -TUM_SHIFT*i. Returns (depth f32 (H, W) in
+    metres, color u8 (H, W, 4))."""
+    vv, uu = np.meshgrid(np.arange(TUM_H), np.arange(TUM_W), indexing="ij")
+    sx = TUM_SHIFT * i
+    z = np.full((TUM_H, TUM_W), 2.0)
+    boxes = [(-0.6, -0.3, 0.35, 0.25, 0.5), (0.4, 0.2, 0.3, 0.3, 0.35),
+             (0.1, -0.5, 0.2, 0.2, 0.25)]
+    for _ in range(8):  # fixed-point solve of the pixel-ray / surface hit
+        xw = (uu - TUM_CX) / TUM_FX * z - sx
+        yw = (vv - TUM_CY) / TUM_FY * z
+        base = 2.0 + 0.12 * np.sin(3.0 * xw) * np.cos(3.0 * yw)
+        for (bx, by, w, h, dz) in boxes:
+            inside = (np.abs(xw - bx) < w) & (np.abs(yw - by) < h)
+            base = np.where(inside, base - dz, base)
+        z = base
+    xw = (uu - TUM_CX) / TUM_FX * z - sx
+    yw = (vv - TUM_CY) / TUM_FY * z
+    color = np.stack([
+        (127 + 120 * np.sin(5.0 * xw)).astype(np.uint8),
+        (127 + 120 * np.cos(4.0 * yw)).astype(np.uint8),
+        (127 + 120 * np.sin(3.0 * (xw + yw))).astype(np.uint8),
+        np.full((TUM_H, TUM_W), 255, np.uint8),
+    ], axis=-1)
+    return z.astype(np.float32), color
+
+
+def prepare_tum_state(device):
+    """Frame 0 as the compact tracking target (on the host) and
+    TUM_BATCH_FRAMES full-size source frames in 6-dim colour Morton order
+    (on ``device``)."""
+    from icp_variants_tpu_torch.data import rgbd
+    from icp_variants_tpu_torch.pipeline import icp
+
+    K = np.array([[TUM_FX, 0, TUM_CX], [0, TUM_FY, TUM_CY], [0, 0, 1]], np.float32)
+    eye = np.eye(4, dtype=np.float32)
+    cap = TUM_W * TUM_H
+    depth0, color0 = synth_depth_frame(0)
+    tgt = rgbd.cloud_from_depth(depth0, color0, K, eye, keep_original_size=False,
+                                capacity=cap, device="cpu")
+    srcs = [rgbd.cloud_from_depth(*synth_depth_frame(i), K, eye, keep_original_size=True,
+                                  capacity=cap, color_morton_order=True, device=device)
+            for i in range(1, TUM_BATCH_FRAMES + 1)]
+    return tgt, icp.stack_clouds(srcs)
+
+
+def tum_base_config(**overrides):
+    from icp_variants_tpu_torch.pipeline.config import ICPConfig, Metric, Minimizer
+
+    cfg = ICPConfig(
+        metric=Metric.POINT_TO_PLANE, minimizer=Minimizer.LINEAR,
+        n_iterations=TUM_ITERATIONS, max_distance=TUM_MAX_DISTANCE,
+    ).with_camera(fx=TUM_FX, fy=TUM_FY, cx=TUM_CX, cy=TUM_CY, width=TUM_W, height=TUM_H)
+    return cfg.replace(**overrides)
+
+
+def time_ms(fn, reps):
+    """Median ms of ``fn`` between CUDA events, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        out.append(s.elapsed_time(e))
+    return float(np.median(out))
+
+
+def plain_pass(fn, n, rows=PLAIN_CHUNK_ROWS):
+    """``fn(s, e)`` over windows [s, e) of ``n`` rows, outputs joined along
+    the row axis; returns them and the whole pass's CUDA-event ms."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    outs = [fn(s, min(s + rows, n)) for s in range(0, n, rows)]
+    end.record()
+    end.synchronize()
+    return tuple(torch.cat(o, dim=1) for o in zip(*outs)), start.elapsed_time(end)
+
+
+def bound(nbytes, nops):
+    """Least time in ms for ``nbytes`` of traffic and ``nops`` f32
+    operations on the card, and which of the two bounds it."""
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, nops / PEAK_F32_OPS * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
 class Failure(Exception):
@@ -186,16 +334,20 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
-    smoke(card)
+    rows_eth, launches_eth = eth_phase()
+    rows_color, launches_color = color_phase()
+    record(rows_eth, launches_eth, rows_color, launches_color)
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 
 
-def smoke(card: str, n_pairs: int = BATCH_PAIRS, n_points: int = N_POINTS) -> None:
-    """Phases 2-4 on the card with ``n_pairs`` pairs of ``n_points``
-    points; raises :class:`Failure` on a failed check."""
+def eth_phase(n_pairs: int = BATCH_PAIRS, n_points: int = N_POINTS):
+    """Phases 2-3 on the card with ``n_pairs`` pairs of ``n_points``
+    points; returns the kernel rows and the launches of the main-path runs.
+    Raises :class:`Failure` on a failed check."""
     import torch
 
     from icp_variants_tpu_torch.core import cloud as cloud_lib
@@ -228,7 +380,8 @@ def smoke(card: str, n_pairs: int = BATCH_PAIRS, n_points: int = N_POINTS) -> No
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phase 2: kernels against their plain versions ---------------------
-    print("phase 2: kernels against plain versions at main-path shapes", flush=True)
+    print("phase 2: ETH kernels (D = 3) against plain versions at the path's shapes",
+          flush=True)
     k_cap = icp._compact_capacity(cap, SELECTION_P)
     gen = torch.Generator(device=dev).manual_seed(0)
     sel_idx, in_range = selection.bernoulli_gap_indices(
@@ -242,24 +395,6 @@ def smoke(card: str, n_pairs: int = BATCH_PAIRS, n_points: int = N_POINTS) -> No
     bound_val = knn.bound_value(MAX_DISTANCE)
     binit = torch.full((b, n), bound_val, device=dev)
     print(f"  queries: {b} x {n} (first iteration's draw, identity pose)")
-
-    def time_ms(fn, reps):
-        """Median ms of ``fn`` between CUDA events."""
-        fn()
-        sync()
-        out = []
-        for _ in range(reps):
-            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            e.synchronize()
-            out.append(s.elapsed_time(e))
-        return float(np.median(out))
-
-    def bound(nbytes, nops):
-        t_b, t_o = nbytes / PEAK_BYTES * 1e3, nops / PEAK_F32_OPS * 1e3
-        return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
     rows = {}
     d = 3
@@ -276,19 +411,7 @@ def smoke(card: str, n_pairs: int = BATCH_PAIRS, n_points: int = N_POINTS) -> No
         d2_p, idx_p = kdtree.kd_block_search_plain(q, sel_k, binit, kd.pages)
         sync()
         check(torch.equal(d2_k, d2_p), f"kd_block_search k={k}: d2 equal to plain")
-        diff = idx_k != idx_p
-        n_diff = int(diff.sum())
-        if n_diff:
-            # Allowed only at exactly tied distances: the kernel's point
-            # must lie at the same distance.
-            blk = (idx_k // cap_pad).clamp(min=0).long()
-            slot = (idx_k % cap_pad).long()
-            bi = torch.arange(b, device=dev)[:, None].expand_as(blk)
-            pts = kd.pages[bi, blk, :d, :].gather(-1, slot[..., None, None].expand(b, n, d, 1))[..., 0]
-            dd = ((pts - q) ** 2).sum(-1)
-            check(bool(torch.all((dd == d2_k) | ~diff)), f"kd_block_search k={k}: {n_diff} idx differ, all at tied distances")
-        else:
-            check(True, f"kd_block_search k={k}: idx equal to plain")
+        _tie_or_equal(idx_k, idx_p, d2_k, q, kd.pages, f"kd_block_search k={k}")
         if k == 4:
             members = sel_k >= 0
             n_member = int(members.sum())
@@ -299,7 +422,7 @@ def smoke(card: str, n_pairs: int = BATCH_PAIRS, n_points: int = N_POINTS) -> No
             distinct = int(used.sum())
             distinct_pts = int(block_real[used].sum())
             rows["box_topk"] = dict(
-                err=float((resid_k - resid_p).abs().max()),
+                err=float((resid_k - resid_p).abs().nan_to_num(0.0).max()),
                 ms=time_ms(lambda: kdtree.box_topk(q, binit, kd.block_min, kd.block_max, 4), 50),
                 plain_ms=time_ms(lambda: kdtree.box_topk_plain(q, binit, kd.block_min, kd.block_max, 4), 10),
                 bound=bound(b * n * (d + 1 + k + 1) * 4 + b * nc * d * 2 * 4,
@@ -379,8 +502,8 @@ def smoke(card: str, n_pairs: int = BATCH_PAIRS, n_points: int = N_POINTS) -> No
     torch.cuda.empty_cache()
 
     launches = {name: 0 for name in _cuda.KERNELS}
-    # ---- phase 3: the main path ---------------------------------------
-    print(f"phase 3: main path, {b} pairs x {cap} rows x {N_ITERATIONS} iterations",
+    # ---- phase 3: the ETH path ----------------------------------------
+    print(f"phase 3: ETH path, {b} pairs x {cap} rows x {N_ITERATIONS} iterations",
           flush=True)
     arms, runs = {}, {}
     checks_of = {"exact": 0, "checks16": CHECKS_APPROX}
@@ -399,23 +522,7 @@ def smoke(card: str, n_pairs: int = BATCH_PAIRS, n_points: int = N_POINTS) -> No
         runs[arm] = run
         run(1)
         sync()
-    # Timed runs in turns (exact, checks16, checks16, exact, ...) so host
-    # drift hits both arms alike; launches are counted on each arm's first.
-    walls = {arm: [] for arm in runs}
-    issues = {arm: [] for arm in runs}
-    counts, results = {}, {}
-    for r in range(N_TIMED_RUNS):
-        for arm in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
-            if r == 0:
-                _cuda.reset_launches()
-            t0 = time.perf_counter()
-            res_r = runs[arm](2 + r)
-            issues[arm].append(time.perf_counter() - t0)   # host time to queue the run
-            sync()
-            walls[arm].append(time.perf_counter() - t0)
-            if r == 0:
-                counts[arm] = dict(_cuda.LAUNCHES)    # the main path's run
-                results[arm] = res_r
+    walls, issues, counts, results = timed_runs(runs)
     for arm in runs:
         dt, issued = float(np.median(walls[arm])), float(np.median(issues[arm]))
         poses = results[arm].pose.cpu().numpy().astype(np.float64)
@@ -480,7 +587,441 @@ def smoke(card: str, n_pairs: int = BATCH_PAIRS, n_points: int = N_POINTS) -> No
     check(launches["visited_search"] >= 1, "visited_search launched on the main path")
     print("  main path: " + json.dumps(arms))
 
-    # ---- phase 4: the record ----------------------------------------------
+    return rows, launches
+
+
+def timed_runs(runs):
+    """N_TIMED_RUNS runs of each arm's ``runs[arm](seed)``, in turns
+    (exact, checks16, checks16, exact, ...) so host drift hits both arms
+    alike. Returns per arm the wall seconds, the host seconds to queue the
+    run, and the launch counts and result of its first run (each count set
+    to 0 just before it): the main path's run."""
+    import torch
+
+    from icp_variants_tpu_torch.ops import _cuda
+
+    walls = {arm: [] for arm in runs}
+    issues = {arm: [] for arm in runs}
+    counts, results = {}, {}
+    for r in range(N_TIMED_RUNS):
+        for arm in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            if r == 0:
+                _cuda.reset_launches()
+            t0 = time.perf_counter()
+            res = runs[arm](2 + r)
+            issues[arm].append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            walls[arm].append(time.perf_counter() - t0)
+            if r == 0:
+                counts[arm] = dict(_cuda.LAUNCHES)
+                results[arm] = res
+    return walls, issues, counts, results
+
+
+def _tie_or_equal(idx_k, idx_p, d2_k, q, pages, what):
+    """Kernel and plain indices into ``pages`` agree, or differ only where
+    the kernel's point lies at exactly the kernel's reported distance."""
+    import torch
+
+    diff = idx_k != idx_p
+    n_diff = int(diff.sum())
+    if not n_diff:
+        check(True, f"{what}: idx equal to plain")
+        return
+    b, n, d = q.shape
+    cap_pad = pages.shape[-1]
+    blk = (idx_k // cap_pad).clamp(min=0).long()
+    slot = (idx_k % cap_pad).long()
+    bi = torch.arange(b, device=q.device)[:, None].expand_as(blk)
+    pts = pages[bi, blk, :d, :].gather(-1, slot[..., None, None].expand(b, n, d, 1))[..., 0]
+    dd = ((pts - q) ** 2).sum(-1)
+    check(bool(torch.all((dd == d2_k) | ~diff)),
+          f"{what}: {n_diff} idx differ, all at tied distances")
+
+
+def color_phase():
+    """Phase 4 on the card; returns the D = 6 kernel rows and the launches
+    of the colour main-path runs. Raises :class:`Failure` on a failed
+    check."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    from icp_variants_tpu_torch.core import se3
+    from icp_variants_tpu_torch.ops import kdtree, knn
+    from icp_variants_tpu_torch.pipeline import icp
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    torch.cuda.empty_cache()
+    print(f"phase 4: colour path, {TUM_BATCH_FRAMES} frames x {TUM_W * TUM_H} rows x "
+          f"{TUM_ITERATIONS} iterations", flush=True)
+    t0 = time.perf_counter()
+    tgt_host, sources = prepare_tum_state(dev)
+    targets = icp.stack_clouds([tgt_host] * TUM_BATCH_FRAMES).to(dev)
+    checks_of = {"exact": 0, "checks16": CHECKS_APPROX}
+    cfgs, kds = {}, {}
+    for arm, checks in checks_of.items():
+        cfg = tum_base_config(color_icp=True, multi_resolution=True, matching_checks=checks)
+        kd0 = icp.build_kd_for(cfg, tgt_host, device=dev)
+        check(kd0 is not None and kd0.block_min.shape[-1] == 6,
+              f"colour {arm}: build_kd_for gives a 6-dim kd index for the dense config")
+        cfgs[arm], kds[arm] = cfg, kdtree.stack_kd_indexes([kd0] * TUM_BATCH_FRAMES)
+    sync()
+    b, cap = sources.valid.shape
+    kx, ka = kds["exact"], kds["checks16"]
+    d = 6
+    print(f"  host data: {b} frames x {cap} rows (target {int(tgt_host.valid.sum())} valid rows); "
+          f"kd exact {kx.pages.shape[1]} blocks of cap_pad {kx.pages.shape[-1]}, checks16 "
+          f"{ka.pages.shape[1]} of {ka.pages.shape[-1]}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    def run(arm, seed):
+        return icp.run_icp_batch_multires_segmented(
+            cfgs[arm], sources, targets, seed=seed, num_source_points=TUM_W * TUM_H,
+            kd_indexes=kds[arm], device=dev)
+
+    t0 = time.perf_counter()
+    warm = {arm: run(arm, 1) for arm in cfgs}
+    sync()
+    print(f"  warm-up runs: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- kernels at D = 6 against their plain versions ---------------------
+    # The fine (stride-1) level's queries at each arm's final warm-up pose;
+    # masked rows pinned to the first valid row, as run_icp_batch does.
+    fine = icp._slice_clouds_stride(sources, 1)
+    qmask = fine.valid
+
+    def fine_queries(pose):
+        pts = se3.transform_points(fine.points, pose)
+        first = torch.argmax(qmask.to(torch.uint8), dim=-1)
+        pts = torch.where(qmask[..., None], pts, knn.take_rows(pts, first[:, None]))
+        return knn.color_features(pts, fine.colors).contiguous()
+
+    q_ex, q_ap = fine_queries(warm["exact"].pose), fine_queries(warm["checks16"].pose)
+    bv = knn.bound_value(TUM_MAX_DISTANCE)
+    n = cap
+    b_full = torch.full((b, n), bv, device=dev)
+    rows = {}
+    shapes = f"{b} x {n} rows (D = 6)"
+    plain_on = f"{shapes}, in windows of {PLAIN_CHUNK_ROWS} rows per frame"
+    for arm, kd_, q_, k in (("exact", kx, q_ex, 4), ("checks16", ka, q_ap, 1)):
+        sel, res = kdtree.box_topk(q_, b_full, kd_.block_min, kd_.block_max, k)
+        (sel_p, res_p), box_plain_ms = plain_pass(
+            lambda s, e: kdtree.box_topk_plain(q_[:, s:e], b_full[:, s:e], kd_.block_min,
+                                               kd_.block_max, k), n)
+        check(torch.equal(sel, sel_p) and torch.equal(res, res_p),
+              f"box_topk D=6 k={k} ({arm} index, all {b} x {n} rows): sel and resid equal to plain")
+        d2, idx = kdtree.kd_block_search(q_, sel, b_full, kd_.pages)
+        (d2_p, idx_p), kd_plain_ms = plain_pass(
+            lambda s, e: kdtree.kd_block_search_plain(q_[:, s:e], sel[:, s:e], b_full[:, s:e],
+                                                      kd_.pages), n)
+        check(torch.equal(d2, d2_p),
+              f"kd_block_search D=6 k={k} ({arm} index, all {b} x {n} rows): d2 equal to plain")
+        _tie_or_equal(idx, idx_p, d2, q_, kd_.pages, f"kd_block_search D=6 k={k} ({arm} index)")
+        if arm == "exact":
+            nc = kd_.pages.shape[1]
+            block_real = (kd_.block_orig >= 0).sum(-1)                   # (B, nc)
+            members = sel >= 0
+            bi = torch.arange(b, device=dev)[:, None, None].expand_as(sel)
+            member_pts = int(block_real[bi[members], sel[members].long()].sum())
+            used = torch.zeros((b, nc), dtype=torch.bool, device=dev)
+            used[bi[members], sel[members].long()] = True
+            rows["box_topk"] = dict(
+                err=float((res - res_p).abs().nan_to_num(0.0).max()),
+                shapes=f"{shapes}, k = 4, {nc} blocks",
+                ms=time_ms(lambda: kdtree.box_topk(q_ex, b_full, kd_.block_min, kd_.block_max, k), 10),
+                plain_ms=box_plain_ms, plain_on=plain_on,
+                bound=bound(b * n * (d + 1 + k + 1) * 4 + b * nc * d * 2 * 4,
+                            b * n * nc * (6 * d - 1 + k + 1)))
+            rows["kd_block_search"] = dict(
+                err=float((d2 - d2_p).abs().max()), shapes=f"{shapes}, k = 4",
+                ms=time_ms(lambda: kdtree.kd_block_search(q_ex, sel, b_full, kd_.pages), 5),
+                plain_ms=kd_plain_ms, plain_on=plain_on,
+                bound=bound(b * n * (d + k + 1 + 2) * 4 + int(block_real[used].sum()) * d * 4,
+                            member_pts * 3 * d))
+            print(f"  kd_block_search k=4: {int(members.sum())} member blocks, "
+                  f"{member_pts} real points searched, {int(used.sum())} distinct (frame, block)")
+            del members, bi
+        del sel, res, sel_p, res_p, d2, idx, d2_p, idx_p
+        torch.cuda.empty_cache()
+
+    # The seeded block search: the checks16 warm-up's final blocks, -1 for
+    # masked rows (as match_kd_cached passes them).
+    blk = torch.where(qmask, warm["checks16"].match_blocks, -1).contiguous()
+    check(bool((blk < 0).any()) and bool((blk >= 0).any()),
+          f"cached_block_search: {int((blk < 0).sum())} of {blk.numel()} rows are -1")
+    ci_k, cd_k = kdtree.nn_search_kd_cached(q_ap, ka, TUM_MAX_DISTANCE, blk)
+    (ci_p, cd_p), cached_plain_ms = plain_pass(
+        lambda s, e: kdtree.nn_search_kd_cached_oracle(q_ap[:, s:e], ka, TUM_MAX_DISTANCE,
+                                                       blk[:, s:e]), n)
+    check(torch.equal(cd_k, cd_p), f"cached_block_search D=6 (all {b} x {n} rows): d2 equal to plain")
+    _tie_or_equal(ci_k, ci_p, cd_k, q_ap, ka.pages, "cached_block_search D=6")
+    nc_a = ka.pages.shape[1]
+    real_a = (ka.block_orig >= 0).sum(-1)
+    has = blk >= 0
+    bi = torch.arange(b, device=dev)[:, None].expand_as(blk)
+    row_pts = int(real_a[bi[has], blk[has].long()].sum())
+    used = torch.zeros((b, nc_a), dtype=torch.bool, device=dev)
+    used[bi[has], blk[has].long()] = True
+    rows["cached_block_search"] = dict(
+        err=float((cd_k - cd_p).abs().max()), shapes=f"{shapes}, {nc_a} blocks",
+        ms=time_ms(lambda: kdtree.nn_search_kd_cached(q_ap, ka, TUM_MAX_DISTANCE, blk), 10),
+        plain_ms=cached_plain_ms, plain_on=plain_on,
+        bound=bound(b * n * (d + 1 + 2) * 4 + int(real_a[used].sum()) * d * 4, row_pts * 3 * d))
+    print(f"  cached_block_search: {int(has.sum())} seeded rows, {row_pts} real points "
+          f"searched, {int(used.sum())} distinct (frame, block)")
+    del ci_k, cd_k, ci_p, cd_p
+
+    # The fallback search: all rows live on a subset of each frame, and at
+    # the full shapes at the exact arm's real fallback radii (rows whose
+    # top-4 certificate fails at the warm-up's final pose; the rest frozen),
+    # there held against the plain version on every live row.
+    fidx = knn.build_target_index(knn.color_features(targets.points, targets.colors),
+                                  tile_t=knn.V2_TILE_T)
+    starts = np.linspace(0, cap - SUBSET_WINDOW, SUBSET_WINDOWS).astype(np.int64)
+    sub = torch.from_numpy(np.concatenate([np.arange(s, s + SUBSET_WINDOW) for s in starts])).to(dev)
+    qs = q_ex[:, sub].contiguous()
+    b_sub = torch.full(qs.shape[:2], bv, device=dev)
+    vd_k, vi_k = knn.visited_search(qs, b_sub, fidx)
+    vd_p, vi_p = knn.visited_search_plain(qs, b_sub, fidx)
+    sync()
+    check(torch.equal(vd_k, vd_p) and torch.equal(vi_k, vi_p),
+          f"visited_search D=6 (all rows live, {b} x {len(sub)} rows): equal to plain")
+    _, _, fail = kdtree.nn_search_kd_resident(q_ex, kx, TUM_MAX_DISTANCE)
+    radii = torch.where(fail, bv, -1.0).contiguous()
+    vdf, vif = knn.visited_search(q_ex, radii, fidx)
+    live_n = fail.sum(1)
+    l_max = max(int(live_n.max()), 1)
+    order = torch.argsort((~fail).to(torch.uint8), dim=1, stable=True)[:, :l_max]
+    lq, lr = knn.take_rows(q_ex, order), torch.where(knn.take_rows(fail, order), bv, -1.0)
+    (lp_d, lp_i), live_plain_ms = plain_pass(
+        lambda s, e: knn.visited_search_plain(lq[:, s:e].contiguous(), lr[:, s:e].contiguous(),
+                                              fidx), l_max)
+    check(torch.equal(knn.take_rows(vdf, order), lp_d)
+          and torch.equal(knn.take_rows(vif, order), lp_i),
+          f"visited_search D=6 at the fallback's radii: all {int(live_n.sum())} live rows of "
+          f"{b * n} equal to plain")
+    n_tiles, tile_t = fidx.points_t3.shape[1], fidx.points_t3.shape[-1]
+    tile_real = torch.nn.functional.pad(targets.valid.to(torch.int64), (0, n_tiles * tile_t - cap))
+    tile_real = tile_real.reshape(b, n_tiles, tile_t).sum(-1)
+    lb = kdtree._box_lb(lq, fidx.bbox_min[..., :d], fidx.bbox_max[..., :d])
+    need = (lb <= knn.take_rows(vdf, order)[..., None]) & (lr >= 0)[..., None]
+    del lb
+    need_pts = int(torch.bmm(need.float(), tile_real[:, :, None].float()).double().sum())
+    touched = need.any(1)
+    rows["visited_search"] = dict(
+        err=max(float((vd_k - vd_p).abs().max()), float((knn.take_rows(vdf, order) - lp_d).abs().max())),
+        shapes=f"{shapes}, {int(live_n.sum())} live rows (the exact arm's fallback radii)",
+        ms=time_ms(lambda: knn.visited_search(q_ex, radii, fidx), 5),
+        plain_ms=live_plain_ms, plain_on="the same live rows only (frozen rows need no work)",
+        all_live_ms=time_ms(lambda: knn.visited_search(qs, b_sub, fidx), 5),
+        all_live_plain_ms=time_ms(lambda: knn.visited_search_plain(qs, b_sub, fidx), 2),
+        all_live_on=f"{b} x {len(sub)} rows, all live",
+        bound=bound(b * n * 3 * 4 + int(live_n.sum()) * d * 4
+                    + int(tile_real[touched].sum()) * d * 4, need_pts * 3 * d))
+    print(f"  visited_search at the fallback's radii: {int(live_n.sum())} live rows "
+          f"({int(live_n.max())} in the fullest frame), {need_pts} real points needed; all "
+          f"live on {b} x {len(sub)} rows: kernel {rows['visited_search']['all_live_ms']:.4f} ms, "
+          f"plain {rows['visited_search']['all_live_plain_ms']:.4f} ms")
+    del need, lq, order, vdf, vif, fail, lp_d, lp_i
+    for name, r in rows.items():
+        print(f"  {name} (D=6): kernel {r['ms']:.4f} ms at {r['shapes']}; plain "
+              f"{r['plain_ms']:.4f} ms on {r['plain_on']}; bound {r['bound'][0]:.5f} ms "
+              f"({r['bound'][1]}); max_abs_err {r['err']}", flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- the main path: timed runs in turns --------------------------------
+    walls, issues, counts, results = timed_runs(
+        {arm: (lambda seed, arm=arm: run(arm, seed)) for arm in cfgs})
+    arms = {}
+    for arm in cfgs:
+        dt, issued = float(np.median(walls[arm])), float(np.median(issues[arm]))
+        poses = results[arm].pose.cpu().numpy().astype(np.float64)
+        nm = results[arm].trace.num_matches.cpu().numpy()
+        check(poses.shape == (b, 4, 4) and np.isfinite(poses).all(),
+              f"colour {arm}: {b} finite 4x4 poses")
+        t_errs, r_errs = color_errors(poses)
+        arms[arm] = dict(
+            frames_per_s=b / dt, seconds=dt, seconds_each=walls[arm], host_issue_s=issued,
+            t_err_m=float(np.mean(t_errs)), r_err_deg=float(np.mean(r_errs)),
+            mean_matches_per_iter=float(nm.mean()), fine_matches_per_iter=float(nm[:, -1].mean()),
+            launches=counts[arm])
+        print(f"  colour {arm}: {b / dt:.4f} frames/s (median of {N_TIMED_RUNS} runs: {dt:.4f} s "
+              f"per batch, host issue {issued:.4f} s; runs {[round(w, 4) for w in walls[arm]]}), "
+              f"mean t_err {np.mean(t_errs) * 1e3:.4f} mm, mean r_err {np.mean(r_errs):.6f} deg, "
+              f"matches/iter mean {nm.mean():.1f} (last {nm[:, -1].mean():.1f}), "
+              f"launches {counts[arm]}", flush=True)
+        check(np.mean(t_errs) <= T_ERR_LIMIT_M, f"colour {arm}: mean t_err <= 1 cm")
+        check(np.mean(t_errs) <= COLOR_T_ERR_TIGHT_M,
+              f"colour {arm}: mean t_err <= {COLOR_T_ERR_TIGHT_M * 1e3:g} mm")
+    n_seeded = sum(c for s, c in icp._stride_groups(icp.cloud_lib.multires_stride_schedule(
+        TUM_W * TUM_H, TUM_ITERATIONS, True)) if s == 1)
+    n_iter = len(icp.cloud_lib.multires_stride_schedule(TUM_W * TUM_H, TUM_ITERATIONS, True))
+    for name in ("box_topk", "kd_block_search", "visited_search"):
+        check(counts["exact"].get(name, 0) >= n_iter,
+              f"colour exact: {name} launched >= {n_iter} times")
+    check(counts["checks16"].get("cached_block_search", 0) >= n_seeded,
+          f"colour checks16: cached_block_search launched >= {n_seeded} times (the seeded level)")
+    for name in ("box_topk", "kd_block_search"):
+        check(counts["checks16"].get(name, 0) >= n_iter - n_seeded,
+              f"colour checks16: {name} launched >= {n_iter - n_seeded} times (unseeded levels)")
+
+    # ---- each arm's matcher at frame 0's final pose against cKDTree ---------
+    tfeat = knn.color_features(tgt_host.points, tgt_host.colors).numpy().astype(np.float64)
+    rows_ok = np.flatnonzero(tgt_host.valid.numpy())
+    tree = cKDTree(tfeat[rows_ok])
+    vrows = torch.nonzero(qmask[0]).flatten()
+    fsub = vrows[torch.linspace(0, len(vrows) - 1, 4096, device=dev).long()]
+    kd0 = {arm: kdtree.KDIndex(*(None if f is None else f[:1] for f in kds[arm])) for arm in kds}
+    fidx0 = knn.TargetIndex(*(f[:1] for f in fidx))
+    for arm in cfgs:
+        qf = fine_queries(results[arm].pose)[:1, fsub].contiguous()
+        qf_np = qf[0].cpu().numpy().astype(np.float64)
+        dref, iref = tree.query(qf_np, k=1)
+        iref, d2ref = rows_ok[iref], dref * dref
+        within = d2ref <= TUM_MAX_DISTANCE
+        clear = np.abs(d2ref - TUM_MAX_DISTANCE) > 1e-6
+        if arm == "exact":
+            mi, md, mv = kdtree.match_kd(qf, kd0[arm], fidx0, TUM_MAX_DISTANCE, checks=0)
+            mi, md, mv = (x[0].cpu().numpy() for x in (mi, md, mv))
+            same = (mi == iref) | np.isclose(md, d2ref, rtol=1e-6, atol=0)
+            check(bool(np.all((mv == within)[clear])) and bool(np.all(same[mv & within]))
+                  and np.allclose(md[mv], d2ref[mv], rtol=1e-5, atol=1e-7),
+                  f"colour exact at frame 0's final pose: every match of {len(fsub)} rows "
+                  "== cKDTree within the threshold")
+        else:
+            blk0 = results[arm].match_blocks[:1, fsub].contiguous()
+            mi, md, mv = kdtree.match_kd_cached(qf, kd0[arm], TUM_MAX_DISTANCE, blk0)
+            orig = knn.take_rows(kd0[arm].page_orig, mi.clamp(min=0))
+            mi, md, mv, orig = (x[0].cpu().numpy() for x in (mi, md, mv, orig))
+            real = ((qf_np - tfeat[np.clip(orig, 0, None)]) ** 2).sum(1)
+            same = (orig == iref) | np.isclose(md, d2ref, rtol=1e-6, atol=0)
+            check(bool(np.all(mv <= within | ~clear))
+                  and np.allclose(md[mv], real[mv], rtol=1e-5, atol=1e-7)
+                  and bool(np.all(md[mv] >= d2ref[mv] * (1 - 1e-5) - 1e-9)),
+                  f"colour checks16 at frame 0's final pose: every seeded match of "
+                  f"{len(fsub)} rows is a real point, no nearer than cKDTree's")
+        print(f"  colour {arm} at frame 0's final pose: {int(mv.sum())} of {len(fsub)} rows "
+              f"matched, {int((same & mv).sum())} equal to cKDTree, {int(within.sum())} "
+              "within the threshold by cKDTree", flush=True)
+    # Profiled runs come after every timed run.
+    for arm in cfgs:
+        prof = profile_run(lambda: run(arm, 99), arms[arm]["seconds"], top=10)
+        arms[arm].update(prof)
+        print(f"  colour {arm} profile: device {prof['device_ms']} ms, busy share "
+              f"{prof.get('device_busy_share')}, {prof.get('kernel_launches')} launches")
+        for name, ms in prof.get("device_ms_by_kernel", {}).items():
+            print(f"    device {ms:9.3f} ms  {name}")
+
+    # ---- the fixed point, and what the gates see of two faults ---------------
+    # Each arm's final pose against one more step solved in f64; then the
+    # checks16 arm run again with TF32 in the normal-equation product, and
+    # with a planted fault in the seeded search (every 8th row's match moved
+    # to the next slot of its block), each read against the same gates.
+    def fixed_point(arm, res):
+        step_m, gap = fixed_point_step(cfgs[arm], fine, targets, fidx, kds[arm], res)
+        t_err = float(np.mean(color_errors(res.pose.cpu().numpy().astype(np.float64))[0]))
+        print(f"  colour {arm}: mean t_err {t_err * 1e3:.4f} mm; one more step at the final "
+              f"pose, solved in f64, moves a frame by at most {step_m * 1e3:.6f} mm; the f32 "
+              f"solve of that step differs from it by {gap:.3e}", flush=True)
+        return dict(t_err_m=t_err, fixed_point_step_m=step_m, f32_f64_solve_gap=gap)
+
+    for arm in cfgs:
+        arms[arm].update(fixed_point(arm, results[arm]))
+    probe = {}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32_prof = profile_run(lambda: probe.setdefault("tf32", run("checks16", 7)),
+                                arms["checks16"]["seconds"], top=3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    real_cached = kdtree.nn_search_kd_cached
+
+    def planted(queries, index, max_distance, blk_ids):
+        idx, d2 = real_cached(queries, index, max_distance, blk_ids)
+        row = torch.arange(idx.shape[-1], device=idx.device)
+        moved = torch.where(idx % index.pages.shape[-1] > 0, idx - 1, idx + 1)
+        return torch.where((idx >= 0) & (row % 8 == 0), moved, idx), d2
+
+    kdtree.nn_search_kd_cached = planted
+    try:
+        faulty = run("checks16", 8)
+        sync()
+    finally:
+        kdtree.nn_search_kd_cached = real_cached
+    print("  probe, checks16 with TF32 on; its top kernels:", flush=True)
+    for name, ms in tf32_prof.get("device_ms_by_kernel", {}).items():
+        print(f"    device {ms:9.3f} ms  {name}")
+    arms["checks16"]["probe_tf32"] = fixed_point("checks16", probe["tf32"])
+    print("  probe, checks16 with the planted fault:", flush=True)
+    fault = arms["checks16"]["probe_planted_fault"] = fixed_point("checks16", faulty)
+    print("  colour path: " + json.dumps(arms))
+    for arm in cfgs:
+        check(arms[arm]["fixed_point_step_m"] <= FIXED_POINT_T_M,
+              f"colour {arm}: one more f64-solved step moves no frame by more than "
+              f"{FIXED_POINT_T_M * 1e3:g} mm")
+        check(arms[arm]["f32_f64_solve_gap"] <= SOLVE_GAP_T_M,
+              f"colour {arm}: the f32 solve agrees with the f64 one within {SOLVE_GAP_T_M:g}")
+    check(fault["fixed_point_step_m"] > FIXED_POINT_T_M or fault["t_err_m"] > COLOR_T_ERR_TIGHT_M,
+          "colour checks16: the planted fault crosses a gate")
+    launches = collections.Counter()
+    for arm in cfgs:
+        launches.update(counts[arm])
+    return rows, dict(launches)
+
+
+def color_errors(poses):
+    """Per-frame translation error (max-abs, m) and rotation error (deg) of
+    (B, 4, 4) f64 colour-path poses against the known camera shifts."""
+    t_errs, r_errs = [], []
+    for i, pose in enumerate(poses):
+        gt_t = np.array([-TUM_SHIFT * (i + 1), 0.0, 0.0])
+        t_errs.append(float(np.abs(pose[:3, 3] - gt_t).max()))
+        r_errs.append(rotation_error_deg(pose[:3, :3]))
+    return t_errs, r_errs
+
+
+def fixed_point_step(cfg, fine, targets, fidx, kd, result):
+    """One more stride-1 iteration of ``result``'s run at its final pose, as
+    the driver's last level runs it: the arm's matcher on the card (seeded
+    from ``result.match_blocks`` on the approximate arm), target rows,
+    normal-angle rejection and the configuration's constant weights; the
+    point-to-plane increment solved in f32 and in f64 on the same matches.
+    Returns the largest translation of the f64 increment over the frames
+    (m) and the largest entry gap between the f32 and f64 increments."""
+    import torch
+
+    from icp_variants_tpu_torch.core import se3
+    from icp_variants_tpu_torch.ops import knn, rejection
+    from icp_variants_tpu_torch.pipeline import icp
+    from icp_variants_tpu_torch.solvers import linear
+
+    pose, mask, cache = result.pose, fine.valid, result.match_blocks
+    pts = se3.transform_points(fine.points, pose)
+    first = torch.argmax(mask.to(torch.uint8), dim=-1)
+    pts = torch.where(mask[..., None], pts, knn.take_rows(pts, first[:, None]))
+    idx, _, valid, _ = icp._match_kd_stage(
+        cfg.replace(multi_resolution=False), knn.color_features(pts, fine.colors), kd, fidx,
+        mask, cache, cache is not None)
+    tgt = knn.take_rows(icp._fuse_cloud_table(targets), idx.clamp(0, targets.capacity - 1))
+    valid = valid & (tgt[..., 6] > 0.5)
+    if cfg.rejection:
+        valid = rejection.normal_angle_mask(
+            se3.transform_normals(fine.normals, pose), tgt[..., 3:6], valid)
+    d32, d64 = (linear.estimate_pose_point_to_plane(
+        pts.to(dt), tgt[..., :3].to(dt), tgt[..., 3:6].to(dt),
+        torch.ones(valid.shape, dtype=dt, device=valid.device), valid)
+        for dt in (torch.float32, torch.float64))
+    return float(d64[:, :3, 3].abs().max()), float((d32.double() - d64).abs().max())
+
+
+def record(rows_eth, launches_eth, rows_color, launches_color) -> None:
+    """Phase 5: the kernels line. Each kernel's time, bound and plain time
+    are at the colour path's full shapes (D = 6; the plain version in
+    windows of rows, visited_search's on the live rows only), its ETH
+    numbers (D = 3, full shapes) under ``eth``, its launches summed over
+    both paths' main runs."""
+    print("phase 5: the record", flush=True)
     sources_of = {
         "box_topk": ("icp_variants_tpu_torch/csrc/box_topk.cu",
                      "icp_variants_tpu/ops/kdtree.py:501"),
@@ -488,16 +1029,27 @@ def smoke(card: str, n_pairs: int = BATCH_PAIRS, n_points: int = N_POINTS) -> No
                             "icp_variants_tpu/ops/knn.py:1321"),
         "visited_search": ("icp_variants_tpu_torch/csrc/visited_search.cu",
                            "icp_variants_tpu/ops/knn.py:500"),
+        "cached_block_search": ("icp_variants_tpu_torch/csrc/cached_block_search.cu",
+                                "icp_variants_tpu/ops/kdtree.py:671"),
     }
-    kernels = [
-        dict(name=name, route="cuda", source=sources_of[name][0],
-             replaces=sources_of[name][1], launches=launches[name],
-             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
-             bound_ms=r["bound"][0], bound_by=r["bound"][1], library_ms=None)
-        for name, r in rows.items()
-    ]
+    kernels = []
+    for name, (src, replaces) in sources_of.items():
+        c, e = rows_color[name], rows_eth.get(name)
+        launches = launches_eth.get(name, 0) + launches_color.get(name, 0)
+        check(launches > 0, f"{name}: launched {launches} times on the main paths")
+        entry = dict(
+            name=name, route="cuda", source=src, replaces=replaces, launches=launches,
+            max_abs_err=max(c["err"], e["err"] if e else 0.0), ms=c["ms"],
+            plain_ms=c["plain_ms"], bound_ms=c["bound"][0], bound_by=c["bound"][1],
+            library_ms=None, shapes=c["shapes"], plain_on=c["plain_on"])
+        if name == "cached_block_search":
+            entry["also_replaces"] = "icp_variants_tpu/ops/knn.py:1321 (restrict_col mode)"
+        if e is not None:
+            entry["eth"] = dict(ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound"][0],
+                                bound_by=e["bound"][1], max_abs_err=e["err"],
+                                launches=launches_eth.get(name, 0))
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
-    print(card)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,9 @@ The JAX package's ``Cloud``, ``KDIndex`` and ``TargetIndex`` are
 NamedTuples of arrays that numpy can read (``np.asarray``), stacked along a
 leading pair axis or not. These helpers copy each field onto ``device`` as
 a tensor in the port's container of the same name, so both packages search
-the very same index. Nothing here imports JAX.
+the very same index: geometric or colour clouds, 3-dim or 6-dim kd indexes
+alike. A ``match_blocks`` array of the JAX package's ``ICPResult`` becomes
+a membership seed. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -42,3 +44,9 @@ def kd_index_from_arrays(index, device=None) -> KDIndex:
 def target_index_from_arrays(index, device=None) -> TargetIndex:
     """A ``knn.TargetIndex`` of the JAX package."""
     return _convert(TargetIndex, index, device)
+
+
+def match_blocks_from_array(blocks, device=None) -> torch.Tensor:
+    """An ``ICPResult.match_blocks`` array of the JAX package as an int32
+    tensor, ready for ``run_icp_batch(membership_seed=...)``."""
+    return _tensor(np.asarray(blocks, np.int32), resolve_device(device))

@@ -15,8 +15,9 @@
 //   resid  = min of lb over the blocks left after k rounds.
 //
 // Layout: one thread per query, 128 queries per CTA, grid (ceil(N/128), B).
-// The pair's block boxes (nc x D x 2 f32, 3 KB at nc = 128) sit in shared
-// memory; every thread reads the same box at the same time (broadcast).
+// The pair's block boxes (nc x D x 2 f32: 3 KB at D = 3 and nc = 128,
+// 12 KB at D = 6 and nc = 256) sit in shared memory; every thread reads the
+// same box at the same time (broadcast). Built for D = 3 and D = 6.
 // Rather than keep nc bounds per thread, each round recomputes them:
 // (k + 1) * nc * D gap terms per query. What bounds it on the H100: f32
 // operations, some 20 per (query, block, round), far below one
@@ -24,6 +25,7 @@
 // at that size launch latency dominates.
 #include "common.cuh"
 
+template <int D>
 __global__ void __launch_bounds__(128)
 box_topk_kernel(const float* __restrict__ q, const float* __restrict__ binit,
                 const float* __restrict__ bmin, const float* __restrict__ bmax,
@@ -74,16 +76,23 @@ box_topk_kernel(const float* __restrict__ q, const float* __restrict__ binit,
   }
 }
 
+template <int D>
+static cudaError_t launch(const float* q, const float* binit, const float* bmin,
+                          const float* bmax, int32_t* sel, float* resid, int B, int N, int nc,
+                          int k, cudaStream_t s) {
+  const size_t smem = 2 * static_cast<size_t>(nc) * D * sizeof(float);
+  cudaError_t err = icp_allow_smem(box_topk_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + 127) / 128, B);
+  box_topk_kernel<D><<<grid, 128, smem, s>>>(q, binit, bmin, bmax, sel, resid, N, nc, k);
+  return cudaGetLastError();
+}
+
 extern "C" int box_topk_launch(const float* q, const float* binit, const float* bmin,
                                const float* bmax, int32_t* sel, float* resid, int B,
-                               int N, int nc, int k, void* stream) {
+                               int N, int nc, int k, int D, void* stream) {
   if (k < 1 || k > ICP_MAX_K || k > nc) return cudaErrorInvalidValue;
   if (B == 0 || N == 0) return cudaSuccess;
-  const size_t smem = 2 * static_cast<size_t>(nc) * D * sizeof(float);
-  const dim3 grid((N + 127) / 128, B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = icp_allow_smem(box_topk_kernel, smem);
-  if (err != cudaSuccess) return err;
-  box_topk_kernel<<<grid, 128, smem, s>>>(q, binit, bmin, bmax, sel, resid, N, nc, k);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(ICP_DISPATCH_D(D, launch, q, binit, bmin, bmax, sel, resid, B, N, nc,
+                                         k, static_cast<cudaStream_t>(stream)));
 }

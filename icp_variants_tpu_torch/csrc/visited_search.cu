@@ -20,18 +20,22 @@
 // and the query box is <= the largest live radius (rounded the same way
 // as the distances, so the skip is exact: a skipped tile holds no point
 // below any live radius). A visited tile's first D feature rows
-// (D x 1024 f32 = 12 KB) are staged in shared memory and every live thread
+// (D x 1024 f32: 12 KB at D = 3, 24 KB at D = 6) are staged in shared
+// memory and every live thread
 // runs its direct-difference running minimum over them. Tiles with no
 // live query exit at once, which is the common case in the fallback.
 // Sorting tiles by lower bound and suffix-min pruning, as the TPU kernel
 // did, are left for later.
 //
-// What bounds it on the H100: f32 operations, 9 per (live query, visited
+// Built for D = 3 (geometry) and D = 6 (colour features).
+//
+// What bounds it on the H100: f32 operations, 3D per (live query, visited
 // tile slot), plus the lower-bound scan of every tile per CTA.
 #include "common.cuh"
 
 #define TQ 128
 
+template <int D>
 __global__ void __launch_bounds__(TQ)
 visited_search_kernel(const float* __restrict__ q, const float* __restrict__ radius,
                       const float* __restrict__ pages, const float* __restrict__ tmin,
@@ -124,18 +128,25 @@ visited_search_kernel(const float* __restrict__ q, const float* __restrict__ rad
   }
 }
 
+template <int D>
+static cudaError_t launch(const float* q, const float* radius, const float* pages,
+                          const float* tmin, const float* tmax, float* d2, int32_t* idx, int B,
+                          int N, int n_tiles, int tile_t, cudaStream_t s) {
+  const size_t smem = static_cast<size_t>(D) * tile_t * sizeof(float);
+  cudaError_t err = icp_allow_smem(visited_search_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + TQ - 1) / TQ, B);
+  visited_search_kernel<D><<<grid, TQ, smem, s>>>(q, radius, pages, tmin, tmax, d2, idx, N,
+                                                  n_tiles, tile_t);
+  return cudaGetLastError();
+}
+
 extern "C" int visited_search_launch(const float* q, const float* radius, const float* pages,
                                      const float* tmin, const float* tmax, float* d2,
-                                     int32_t* idx, int B, int N, int n_tiles, int tile_t,
+                                     int32_t* idx, int B, int N, int n_tiles, int tile_t, int D,
                                      void* stream) {
   if (tile_t % 4 != 0) return cudaErrorInvalidValue;
   if (B == 0 || N == 0) return cudaSuccess;
-  const size_t smem = static_cast<size_t>(D) * tile_t * sizeof(float);
-  const dim3 grid((N + TQ - 1) / TQ, B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = icp_allow_smem(visited_search_kernel, smem);
-  if (err != cudaSuccess) return err;
-  visited_search_kernel<<<grid, TQ, smem, s>>>(q, radius, pages, tmin, tmax, d2, idx, N, n_tiles,
-                                               tile_t);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(ICP_DISPATCH_D(D, launch, q, radius, pages, tmin, tmax, d2, idx, B, N,
+                                         n_tiles, tile_t, static_cast<cudaStream_t>(stream)));
 }

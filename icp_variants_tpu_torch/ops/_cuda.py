@@ -39,17 +39,22 @@ NVCC_FLAGS = [
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# Coordinates per point the kernels take (``D`` in ``csrc/common.cuh``).
-KERNEL_DIM = 3
+# Features per point the kernels are built for (``D`` of the templates in
+# ``csrc/``): 3 for geometry, 6 for the colour-ICP features.
+KERNEL_DIMS = (3, 6)
 
-# kernel name -> (source file, C function, ctypes argtypes)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# kernel name -> (source file, C function, ctypes argtypes); every C
+# function ends with (..., int D, void* stream).
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
-    "box_topk": ("box_topk.cu", "box_topk_launch", [_P] * 6 + [_I] * 4 + [_P]),
+    "box_topk": ("box_topk.cu", "box_topk_launch", [_P] * 6 + [_I] * 5 + [_P]),
     "kd_block_search": (
-        "kd_block_search.cu", "kd_block_search_launch", [_P] * 6 + [_I] * 5 + [_P]),
+        "kd_block_search.cu", "kd_block_search_launch", [_P] * 6 + [_I] * 6 + [_P]),
     "visited_search": (
-        "visited_search.cu", "visited_search_launch", [_P] * 7 + [_I] * 4 + [_P]),
+        "visited_search.cu", "visited_search_launch", [_P] * 7 + [_I] * 5 + [_P]),
+    "cached_block_search": (
+        "cached_block_search.cu", "cached_block_search_launch",
+        [_P, _P, _F] + [_P] * 3 + [_I] * 5 + [_P]),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -122,15 +127,15 @@ def build_all() -> float:
 
 def launch(name: str, *args) -> None:
     """Launch kernel ``name`` on the current stream of its tensors' device.
-    ``args`` are tensors (passed by data pointer) and Python ints, in the
-    order of the C function; the stream is appended here."""
+    ``args`` are tensors (passed by data pointer), Python ints and floats,
+    in the order of the C function; the stream is appended here."""
     build_all()
     lib = _libs[name]
     devices = {a.device for a in args if isinstance(a, torch.Tensor)}
     if len(devices) != 1:
         raise ValueError(f"{name}: tensors on several devices {sorted(map(str, devices))}")
     device = devices.pop()
-    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a) for a in args]
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, KERNELS[name][1])(*c_args, stream)
@@ -138,6 +143,13 @@ def launch(name: str, *args) -> None:
         msg = lib.icp_cuda_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")
     LAUNCHES[name] += 1
+
+
+def feature_dim(name: str, d: int) -> int:
+    """Raise unless the kernels are built for ``d`` features per point."""
+    if d not in KERNEL_DIMS:
+        raise ValueError(f"{name}: the kernels take D in {KERNEL_DIMS}, got {d}")
+    return d
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:

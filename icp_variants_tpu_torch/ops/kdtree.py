@@ -9,6 +9,10 @@ PyTorch port of ``icp_variants_tpu.ops.kdtree`` on the ETH main path:
   and keeps its top k (:func:`box_topk`, kernel ``csrc/box_topk.cu``),
   then takes exact direct-difference distances over the points of its own
   k blocks (:func:`kd_block_search`, kernel ``csrc/kd_block_search.cu``).
+* The approximate arm's seeded mode searches exactly one cached block per
+  query instead (:func:`nn_search_kd_cached`, kernel
+  ``csrc/cached_block_search.cu``): the membership cache of the dense
+  segmented multires driver.
 * Certificate: the (k+1)-th smallest bound is the smallest bound of any
   unexamined block. A query whose best distance does not beat it re-searches
   through the fallback (``knn.visited_search``, kernel
@@ -230,12 +234,12 @@ def box_topk(
     (B, nc, D). Returns ``sel`` (B, N, k) int32 — the picks in extraction
     order, -1 where the pick's bound exceeds ``binit`` (no member) — and
     ``resid`` (B, N), the (k+1)-th smallest bound (the certificate). A CUDA
-    tensor launches ``csrc/box_topk.cu`` (D = 3 only); a CPU tensor runs
-    :func:`box_topk_plain`."""
+    tensor launches ``csrc/box_topk.cu`` (D = 3 or 6, from the boxes); a
+    CPU tensor runs :func:`box_topk_plain`."""
     if q.device.type == "cpu":
         return box_topk_plain(q, binit, bmin, bmax, k)
-    b, n, d = q.shape[0], q.shape[1], _cuda.KERNEL_DIM
-    nc = bmin.shape[1]
+    b, n = q.shape[0], q.shape[1]
+    nc, d = bmin.shape[1], _cuda.feature_dim("box_topk", bmin.shape[-1])
     chk = _cuda.check_cuda_tensor
     chk("q", q, torch.float32, (b, n, d))
     chk("binit", binit, torch.float32, (b, n))
@@ -243,7 +247,7 @@ def box_topk(
     chk("bmax", bmax, torch.float32, (b, nc, d))
     sel = torch.empty((b, n, k), dtype=torch.int32, device=q.device)
     resid = torch.empty((b, n), dtype=torch.float32, device=q.device)
-    _cuda.launch("box_topk", q, binit, bmin, bmax, sel, resid, b, n, nc, k)
+    _cuda.launch("box_topk", q, binit, bmin, bmax, sel, resid, b, n, nc, k, d)
     return sel, resid
 
 
@@ -284,11 +288,12 @@ def kd_block_search(
     lowest slot. Returns ``(d2, idx)``, (B, N) each: idx is the pair-local
     page index ``block * cap_pad + slot`` (-1 if nothing beat ``binit``,
     and d2 is then ``binit``). A CUDA tensor launches
-    ``csrc/kd_block_search.cu`` (D = 3 only); a CPU tensor runs
+    ``csrc/kd_block_search.cu`` (D = 3 or 6, from ``q``); a CPU tensor runs
     :func:`kd_block_search_plain`."""
     if q.device.type == "cpu":
         return kd_block_search_plain(q, sel, binit, pages)
-    b, n, d = q.shape[0], q.shape[1], _cuda.KERNEL_DIM
+    b, n = q.shape[0], q.shape[1]
+    d = _cuda.feature_dim("kd_block_search", q.shape[-1])
     k = sel.shape[-1]
     nc, cap_pad = pages.shape[1], pages.shape[-1]
     chk = _cuda.check_cuda_tensor
@@ -298,7 +303,7 @@ def kd_block_search(
     chk("pages", pages, torch.float32, (b, nc, 8, cap_pad))
     d2 = torch.empty((b, n), dtype=torch.float32, device=q.device)
     idx = torch.empty((b, n), dtype=torch.int32, device=q.device)
-    _cuda.launch("kd_block_search", q, sel, binit, pages, d2, idx, b, n, nc, cap_pad, k)
+    _cuda.launch("kd_block_search", q, sel, binit, pages, d2, idx, b, n, nc, cap_pad, k, d)
     return d2, idx
 
 
@@ -329,7 +334,7 @@ def _search(q, index, binit_value, k):
     return sidx, d2, resid
 
 
-def _to_orig(index: KDIndex, sidx: torch.Tensor) -> torch.Tensor:
+def to_orig(index: KDIndex, sidx: torch.Tensor) -> torch.Tensor:
     """Pair-local page index -> original target row (-1 passes through)."""
     orig = knn.take_rows(index.page_orig, sidx.clamp(min=0))
     return torch.where(sidx < 0, -1, orig)
@@ -349,25 +354,32 @@ def nn_search_kd(
     sidx, d2, resid = _search(q, index, float("inf"), k)
     fail = _certificate_fail(resid, d2, max_distance)
     over = d2 > _f32(max_distance)
-    idx = torch.where(over, -1, _to_orig(index, sidx))
+    idx = torch.where(over, -1, to_orig(index, sidx))
     d2 = torch.where(over, knn.bound_value(max_distance), d2)
     return (idx, d2, fail) if batched else (idx[0], d2[0], fail[0])
 
 
 def nn_search_kd_resident(
-    queries: torch.Tensor, index: KDIndex, max_distance: float, *, k: int | None = None
+    queries: torch.Tensor,
+    index: KDIndex,
+    max_distance: float,
+    *,
+    k: int | None = None,
+    orig_map: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The production cold kd search: ``(orig_idx, dist2, fail)`` with the
     search bounded by the miss bound from the start (the JAX resident
     kernel's rule): rows where nothing beats it report idx -1 and dist2 =
     the bound; a best in (max_distance, bound) keeps its row and is
-    rejected by the caller's threshold."""
+    rejected by the caller's threshold. ``orig_map=False`` returns the
+    pair-local page index (``block * cap_pad + slot``) instead of the
+    original target row."""
     batched, (q, index) = knn._batch_args(queries, index)
     nc = index.pages.shape[-3]
     k = min(K_DEFAULT if k is None else k, nc)
     sidx, d2, resid = _search(q, index, knn.bound_value(max_distance), k)
     fail = _certificate_fail(resid, d2, max_distance)
-    idx = _to_orig(index, sidx)
+    idx = to_orig(index, sidx) if orig_map else sidx
     return (idx, d2, fail) if batched else (idx[0], d2[0], fail[0])
 
 
@@ -380,6 +392,7 @@ def match_kd(
     *,
     k: int | None = None,
     checks: int = 0,
+    orig_map: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Matching stage over the k-d index: ``(indices, dist2, valid)`` with
     the squared threshold of NearestNeighbor.h:182.
@@ -388,12 +401,17 @@ def match_kd(
     through ``fallback_index`` with the visited-list search, launched every
     call; rows whose certificate closed pass radius -1 and are frozen.
     ``checks > 0`` is the FLANN-parity approximate arm: top
-    ``checks_to_k(checks)`` blocks, no certificate, no fallback."""
+    ``checks_to_k(checks)`` blocks, no certificate, no fallback; there
+    ``orig_map=False`` returns indices in the sorted page domain
+    (``block * cap_pad + slot``, as the JAX package's
+    ``match_kd(orig_map=False)``), from which the membership cache reads
+    each row's block (:func:`to_orig` maps them to target rows)."""
     batched, (q, index, fallback_index, query_mask) = knn._batch_args(
         queries, index, fallback_index, query_mask)
     if checks > 0:
         k = checks_to_k(checks, index)
-    idx, d2, fail = nn_search_kd_resident(q, index, max_distance, k=k)
+    idx, d2, fail = nn_search_kd_resident(
+        q, index, max_distance, k=k, orig_map=orig_map or checks == 0)
     if checks == 0:
         bound_val = knn.bound_value(max_distance)
         radii = torch.where(fail, bound_val, -1.0).to(torch.float32)
@@ -406,3 +424,81 @@ def match_kd(
     if query_mask is not None:
         valid = valid & query_mask
     return (idx, d2, valid) if batched else (idx[0], d2[0], valid[0])
+
+
+# ---------------------------------------------------------------------------
+# Seeded block membership: kernel 4 fused with kernel 2's restrict_col mode
+# ---------------------------------------------------------------------------
+
+
+def nn_search_kd_cached_oracle(
+    queries: torch.Tensor, index: KDIndex, max_distance: float, blk_ids: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`nn_search_kd_cached`: the best point of each
+    query's assigned block through one row gather of its coordinate-major
+    block row; ties go to the lowest slot."""
+    batched, (q, index, blk) = knn._batch_args(queries, index, blk_ids)
+    nc, dcap = index.block_pts.shape[-2:]
+    d = index.block_min.shape[-1]
+    cap, cap_pad = dcap // d, index.pages.shape[-1]
+    blk = blk.to(torch.int32).clamp(-1, nc - 1)
+    cand = knn.take_rows(index.block_pts, blk.clamp(min=0))       # (B, N, D*cap)
+    d2 = None
+    for j in range(d):
+        diff = cand[..., j * cap:(j + 1) * cap] - q[..., j, None]
+        d2 = diff * diff if d2 is None else d2 + diff * diff
+    best, slot = torch.min(d2, dim=-1)
+    bound_val = knn.bound_value(max_distance)
+    # The kernel's miss rule: its running best starts at bound_val and
+    # takes only strictly smaller distances.
+    miss = (blk < 0) | (best >= bound_val)
+    sidx = torch.where(miss, -1, blk.clamp(min=0) * cap_pad + slot.to(torch.int32))
+    d2 = torch.where(miss, bound_val, best)
+    return (sidx, d2) if batched else (sidx[0], d2[0])
+
+
+def nn_search_kd_cached(
+    queries: torch.Tensor, index: KDIndex, max_distance: float, blk_ids: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Approximate 1-NN with seeded membership: query i searches exactly
+    block ``blk_ids[i]`` of the index (-1 = nothing: idx -1, d2 = the miss
+    bound), strictly below :func:`knn.bound_value`. Returns ``(sorted_idx,
+    d2)`` in the pair-local page domain; no certificate.
+
+    ``queries`` (B, N, >= D), ``blk_ids`` (B, N) int. A CUDA tensor launches
+    ``csrc/cached_block_search.cu`` (D = 3 or 6, from the index); a CPU
+    tensor runs :func:`nn_search_kd_cached_oracle`."""
+    if queries.device.type == "cpu":
+        return nn_search_kd_cached_oracle(queries, index, max_distance, blk_ids)
+    batched, (q, index, blk) = knn._batch_args(queries, index, blk_ids)
+    d = _cuda.feature_dim("cached_block_search", index.block_min.shape[-1])
+    q = q[..., :d].float().contiguous()
+    blk = blk.to(torch.int32).contiguous()
+    b, n = q.shape[0], q.shape[1]
+    nc, cap_pad = index.pages.shape[1], index.pages.shape[-1]
+    chk = _cuda.check_cuda_tensor
+    chk("blk_ids", blk, torch.int32, (b, n))
+    chk("pages", index.pages, torch.float32, (b, nc, 8, cap_pad))
+    d2 = torch.empty((b, n), dtype=torch.float32, device=q.device)
+    idx = torch.empty((b, n), dtype=torch.int32, device=q.device)
+    _cuda.launch("cached_block_search", q, blk, knn.bound_value(max_distance), index.pages,
+                 d2, idx, b, n, nc, cap_pad, d)
+    return (idx, d2) if batched else (idx[0], d2[0])
+
+
+def match_kd_cached(
+    queries: torch.Tensor,
+    index: KDIndex,
+    max_distance: float,
+    blk_ids: torch.Tensor,
+    query_mask: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Matching stage over seeded block membership (approximate arm only):
+    the ``(indices, dist2, valid)`` contract of :func:`match_kd` with
+    ``orig_map=False``. Masked-out queries search nothing."""
+    blk = blk_ids if query_mask is None else torch.where(query_mask, blk_ids, -1)
+    idx, d2 = nn_search_kd_cached(queries, index, max_distance, blk)
+    valid = (d2 <= max_distance) & (idx >= 0)
+    if query_mask is not None:
+        valid = valid & query_mask
+    return idx, d2, valid

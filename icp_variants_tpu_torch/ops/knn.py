@@ -1,9 +1,10 @@
 """Nearest-neighbour search over a tiled target index.
 
 PyTorch port of the parts of ``icp_variants_tpu.ops.knn`` that the kd
-matcher needs: the host-side Morton order, the tile-bbox
-:class:`TargetIndex`, and the visited-list search that serves the exact
-arm's fallback. :func:`visited_search` launches the hand-written CUDA
+matcher needs: the host-side Morton orders (3-dim and the 6-dim colour
+order), the tile-bbox :class:`TargetIndex`, the visited-list search that
+serves the exact arm's fallback, and the JAX package's resident-table rule
+(:func:`resident_fits`). :func:`visited_search` launches the hand-written CUDA
 kernel ``csrc/visited_search.cu`` on CUDA tensors and runs its plain
 PyTorch version, :func:`visited_search_plain`, on CPU tensors.
 
@@ -82,6 +83,57 @@ def morton_codes_np(points, valid_mask=None):
     return np.where(valid_mask, code, np.int64(1) << 40)
 
 
+def morton6_codes_np(points, colors, valid_mask=None):
+    """Host-side Morton codes (numpy, uint64) over the 6-dim colour-ICP
+    features [x, y, z, r/255, g/255, b/255] with one shared quantization
+    scale across the six dims; invalid rows get the largest code. The same
+    code as the JAX package's, so the colour order is bit for bit equal."""
+    feats = np.concatenate([
+        np.asarray(points, np.float64)[:, :3],
+        np.asarray(colors, np.float64)[:, :3] / 255.0,
+    ], axis=1)
+    if valid_mask is None:
+        valid_mask = np.abs(feats[:, :3]).max(axis=1) < 1.0e5
+    valid_mask = np.asarray(valid_mask, bool)
+    if not valid_mask.any():
+        return np.zeros(len(feats), np.uint64)
+    lo = feats[valid_mask].min(axis=0)
+    rng = feats[valid_mask].max(axis=0) - lo
+    scale = 1023.0 / max(float(rng.max()), 1e-12)
+    q = np.clip((feats - lo) * scale, 0.0, 1023.0).astype(np.uint64)
+
+    def spread6(x):
+        out = np.zeros_like(x, np.uint64)
+        for b in range(10):
+            out |= ((x >> np.uint64(b)) & np.uint64(1)) << np.uint64(6 * b)
+        return out
+
+    code = np.zeros(feats.shape[0], np.uint64)
+    for d in range(6):
+        code |= spread6(q[:, d]) << np.uint64(d)
+    code[~valid_mask] = np.uint64(0xFFFFFFFFFFFFFFFF)
+    return code
+
+
+# The JAX package's resident-kernel budget: one pair's kd page table must
+# fit 13 MiB of a TPU core's VMEM. There it decides which matcher, and so
+# which answer, a configuration gets: the kd path for dense selections
+# (pipeline/icp.py:_kd_selection_applies) and the approximate arm's block
+# membership cache (run_icp_batch). The port keeps it as that result rule,
+# so that every configuration gets the JAX package's answer; it chooses no
+# kernel here.
+RESIDENT_VMEM_BUDGET = 13 * 1024 * 1024
+
+
+def resident_fits(nc: int, tile_t: int, d: int | None = None) -> bool:
+    """Whether a page table of ``nc`` blocks x ``tile_t`` slots falls
+    within the JAX package's resident rule; ``d <= 3`` counts its packed
+    layout (two blocks per 8-row page), ``d`` omitted the one-block-per-page
+    table."""
+    n_pages = (nc + 1) // 2 if d is not None and d <= 3 else nc
+    return n_pages * 8 * tile_t * 4 <= RESIDENT_VMEM_BUDGET
+
+
 class TargetIndex(NamedTuple):
     """Tile-bbox search structure over a target cloud (the ``buildIndex``
     phase, NearestNeighbor.h:122-141); the JAX package's fields but its
@@ -158,10 +210,11 @@ def visited_search(
     Returns ``(d2, idx)``, (B, N) each: idx is the tiled position (map
     through ``index.perm``), -1 where nothing beats the radius, and d2 is
     then the radius. A CUDA tensor launches ``csrc/visited_search.cu``
-    (d = 3 only); a CPU tensor runs :func:`visited_search_plain`."""
+    (d = 3 or 6); a CPU tensor runs :func:`visited_search_plain`."""
     if queries.device.type == "cpu":
         return visited_search_plain(queries, radius, index)
-    b, n, d = queries.shape[0], queries.shape[1], _cuda.KERNEL_DIM
+    b, n = queries.shape[0], queries.shape[1]
+    d = _cuda.feature_dim("visited_search", queries.shape[-1])
     n_tiles, tile_t = index.points_t3.shape[-3], index.points_t3.shape[-1]
     chk = _cuda.check_cuda_tensor
     chk("queries", queries, torch.float32, (b, n, d))
@@ -173,7 +226,7 @@ def visited_search(
     idx = torch.empty((b, n), dtype=torch.int32, device=queries.device)
     _cuda.launch(
         "visited_search", queries, radius, index.points_t3, index.bbox_min,
-        index.bbox_max, d2, idx, b, n, n_tiles, tile_t,
+        index.bbox_max, d2, idx, b, n, n_tiles, tile_t, d,
     )
     return d2, idx
 

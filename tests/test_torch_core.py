@@ -188,15 +188,16 @@ def test_rejection_matches_jax():
 
 
 def test_port_imports_no_jax():
-    """Importing the port (and chip_smoke) leaves jax and the JAX package
-    out of sys.modules; ``icp_variants_tpu`` is a prefix of the port's own
+    """Importing the port (and chip_smoke) leaves jax, the JAX package and
+    bench.py out of sys.modules; ``icp_variants_tpu`` is a prefix of the port's own
     name, so the check is on the module itself and its submodules."""
     code = (
         "import sys\n"
         "import icp_variants_tpu_torch, icp_variants_tpu_torch.convert\n"
         "import icp_variants_tpu_torch.pipeline.icp, icp_variants_tpu_torch.ops.kdtree\n"
+        "import icp_variants_tpu_torch.data.rgbd, icp_variants_tpu_torch.ops.normals\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'bench'\n"
         "       or m == 'icp_variants_tpu' or m.startswith('icp_variants_tpu.')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

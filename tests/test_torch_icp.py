@@ -176,15 +176,73 @@ def test_selection_modes_converge(change):
         assert np.abs(resid[:3, 3]).max() < 1e-2
 
 
+@pytest.mark.parametrize("selection", ["RANDOM", "RANDOM_FAST", "ALL"])
+@pytest.mark.parametrize("color,checks", [(False, 0), (False, 16), (True, 0), (True, 16)])
+def test_kd_selection_rule_matches_jax(selection, color, checks):
+    """The rule that fixes which answer a config gets (kd path or not) is
+    the JAX package's, at capacities on both sides of its resident rule
+    (3-dim tables pack two blocks per page, so their limit lies twice as
+    high)."""
+    kw = dict(color_icp=color, matching_checks=checks, selection_proba=0.01)
+    jcfg = jconfig.ICPConfig(selection=getattr(jconfig.Selection, selection), **kw)
+    tcfg = tconfig.ICPConfig(selection=getattr(tconfig.Selection, selection), **kw)
+    caps = [30_000, 307_200, 365_056, 425_984, 430_080, 851_968, 860_160, 1_200_128]
+    got = [ticp._kd_selection_applies(tcfg, c) for c in caps]
+    assert got == [jicp._kd_selection_applies(jcfg, c) for c in caps]
+    if selection == "ALL":
+        assert got[0] and not got[-1]          # both sides of the rule
+
+
 def test_build_kd_for(data):
-    _, tcfg = _cfgs(0)
+    """build_kd_for agrees with the JAX package's on sparse and dense
+    configs, below and above the resident rule, and partitions alike."""
     rng = np.random.default_rng(0)
-    big = tcloud.from_numpy(rng.uniform(-5, 5, (30000, 3)).astype(np.float32), device="cpu")
-    idx = ticp.build_kd_for(tcfg, big, device="cpu")
-    assert isinstance(idx, tkd.KDIndex) and idx.pages.shape[1] == 8
-    assert ticp.build_kd_for(tcfg.replace(selection=tconfig.Selection.ALL), big, device="cpu") is None
+    pts = rng.uniform(-5, 5, (30000, 3)).astype(np.float32)
+    for cap in (None, 900_096):
+        jc = jcloud.from_numpy(pts, capacity=cap)
+        tc = tcloud.from_numpy(pts, capacity=cap, device="cpu")
+        for sel in ("RANDOM", "ALL"):
+            for checks in (0, 16):
+                jcfg, tcfg = _cfgs(checks)
+                jcfg = jcfg.replace(selection=getattr(jconfig.Selection, sel))
+                tcfg = tcfg.replace(selection=getattr(tconfig.Selection, sel))
+                jidx = jicp.build_kd_for(jcfg, jc)
+                tidx = ticp.build_kd_for(tcfg, tc, device="cpu")
+                assert (tidx is None) == (jidx is None), (cap, sel, checks)
+                if sel == "ALL":
+                    assert (tidx is None) == (cap is not None)
+                if tidx is not None:
+                    assert tidx.pages.shape[1] == 8 and tuple(tidx.pages.shape) == jidx.pages.shape
+                    np.testing.assert_array_equal(np.sort(tidx.block_orig.numpy(), axis=1),
+                                                  np.sort(np.asarray(jidx.block_orig), axis=1))
+    _, tcfg = _cfgs(0)
     small = tcloud.Cloud(*(f[0] for f in data["tt"]))
     assert ticp.build_kd_for(tcfg, small, device="cpu") is None
+
+
+def test_dense_approximate_run_matches_jax(data):
+    """A dense (Selection.ALL) checks16 run takes the kd path with the block
+    membership cache in both packages: identical match counts, poses within
+    1e-4, the same recorded blocks but at ties."""
+    jcfg, tcfg = _cfgs(16)
+    jcfg = jcfg.replace(selection=jconfig.Selection.ALL, n_iterations=4)
+    tcfg = tcfg.replace(selection=tconfig.Selection.ALL, n_iterations=4)
+    jt0 = jax.tree.map(lambda x: x[0], data["jt"])
+    tt0 = tcloud.Cloud(*(f[0] for f in data["tt"]))
+    jidx = jicp.build_kd_for(jcfg, jt0, min_points=0)
+    tidx = ticp.build_kd_for(tcfg, tt0, min_points=0, device="cpu")
+    assert jidx is not None and tidx is not None
+    jkds = jkd.stack_kd_indexes([jidx] * N_PAIRS)
+    jr = jicp.run_icp_batch(jcfg, data["js"], data["jt"], key=data["key"], kd_indexes=jkds,
+                            gt_source_points=data["gts"], gt_target_points=data["gtt"])
+    tr = ticp.run_icp_batch(tcfg, data["ts"], data["tt"],
+                            kd_indexes=convert.kd_index_from_arrays(jkds, "cpu"),
+                            gt_source_points=data["gts"], gt_target_points=data["gtt"],
+                            device="cpu")
+    np.testing.assert_array_equal(tr.trace.num_matches.numpy(), np.asarray(jr.trace.num_matches))
+    np.testing.assert_allclose(tr.pose.numpy(), np.asarray(jr.pose), atol=1e-4)
+    jb, tb = np.asarray(jr.match_blocks), tr.match_blocks.numpy()
+    assert (tb != jb).mean() < 0.01
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked(data, monkeypatch):

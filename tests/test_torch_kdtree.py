@@ -251,6 +251,27 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="CUDA"):
         tkd.kd_block_search(q, torch.zeros((1, 4, 2), dtype=torch.int32, device="meta"),
                             binit, torch.zeros((1, 8, 8, 128), device="meta"))
+    meta_idx = tkd.KDIndex(*(torch.zeros(s, device="meta") for s in (
+        (1, 8, 3 * 100), (1, 8, 100), (1, 8, 3), (1, 8, 3), (1, 8, 8, 128), (1, 8 * 128))))
+    with pytest.raises(ValueError, match="CUDA"):
+        tkd.nn_search_kd_cached(q, meta_idx, 1.0, torch.zeros((1, 4), dtype=torch.int32,
+                                                              device="meta"))
+
+
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_wrappers_refuse_other_feature_dims(d):
+    """The kernels are built for D = 3 and D = 6 only."""
+    q = torch.zeros((1, 4, d), device="meta")
+    binit = torch.zeros((1, 4), device="meta")
+    box = torch.zeros((1, 8, d), device="meta")
+    with pytest.raises(ValueError, match="D in"):
+        tkd.box_topk(q, binit, box, box, 2)
+    with pytest.raises(ValueError, match="D in"):
+        tkd.kd_block_search(q, torch.zeros((1, 4, 2), dtype=torch.int32, device="meta"),
+                            binit, torch.zeros((1, 8, 8, 128), device="meta"))
+    with pytest.raises(ValueError, match="D in"):
+        tknn.visited_search(q, binit, tknn.TargetIndex(*(torch.zeros(s, device="meta") for s in (
+            (1, 1024, 8), (1, 1, 8, 1024), (1, 1024), (1, 1, 8), (1, 1, 8)))))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -263,12 +284,18 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.cuda
-def test_kernels_match_plain_on_card():
-    """Each CUDA kernel against its plain version on the card (the full-size
-    check is chip_smoke.py's phase 2)."""
+@pytest.mark.parametrize("d", [3, 6])
+def test_kernels_match_plain_on_card(d):
+    """Each CUDA kernel against its plain version on the card, at D = 3 and
+    the colour features' D = 6, the cached block search with -1 rows (the
+    full-size check is chip_smoke.py's)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     q, t = _clouds(n_q=1000, seed=10)
+    if d == 6:
+        rng = np.random.default_rng(11)
+        t = np.concatenate([t, rng.uniform(0, 1, (len(t), 3)).astype(np.float32)], axis=1)
+        q = np.concatenate([q, rng.uniform(0, 1, (len(q), 3)).astype(np.float32)], axis=1)
     _, tidx = _both_indexes(t)
     dev = torch.device("cuda")
     qc = torch.from_numpy(q)[None].to(dev)
@@ -281,6 +308,10 @@ def test_kernels_match_plain_on_card():
         d2, idx = tkd.kd_block_search(qc, sel, binit, kd.pages)
         d2_p, idx_p = tkd.kd_block_search_plain(qc, sel, binit, kd.pages)
         assert torch.equal(d2, d2_p) and torch.equal(idx, idx_p)
+    blk = sel[..., 0].clone()
+    blk[:, ::5] = -1
+    assert all(torch.equal(a, b) for a, b in zip(
+        tkd.nn_search_kd_cached(qc, kd, 0.5, blk), tkd.nn_search_kd_cached_oracle(qc, kd, 0.5, blk)))
     fi = tknn.build_target_index(torch.from_numpy(t)[None].to(dev))
     radius = binit.clone()
     radius[:, ::3] = -1.0
