@@ -3,12 +3,12 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py            # the full run, about two minutes
+    python3 chip_smoke.py            # the full run, three to six minutes
 
 Phases, in order; any failure exits nonzero:
 
 1. Set-up: fail at once without a CUDA device; TF32 off for matmul and
-   cuDNN; the card's name and power limit; build the four kernels from
+   cuDNN; the card's name and power limit; build the five kernels from
    ``icp_variants_tpu_torch/csrc`` (nvcc, one per source in parallel) and
    print the time.
 2. ETH kernels (D = 3): each kernel against its plain PyTorch version at
@@ -46,20 +46,36 @@ Phases, in order; any failure exits nonzero:
    any frame. Two probes read the gates' reach: the checks16 arm with TF32
    in the normal-equation product, and with a planted fault in the seeded
    search, which must cross a gate.
-5. The record: launches of each kernel on the main paths (the ETH arms
-   and the colour arms); fails unless each ran where its path needs it.
+5. The projective path: the projective RGB-D tracker (the JAX package's
+   ``bench.bench_tum_projective`` and the room run's solver): frames 1-8
+   stride-8 compacted (38,400 rows) tracked against frame 0 kept
+   image-shaped (640 x 480) by ``run_icp_batch``, window +-12 px, 35
+   iterations, squared max distance 0.1; arms linear point-to-plane and LM
+   point-to-point. The window search against its plain version on every
+   row at the identity pose, at the linear warm-up's final poses and on 512
+   rows per frame at and past the image edges, timed there; against a
+   float64 window scan on 4,096 rows of frame 0; timed runs in turns
+   (median frames/s, launches on each arm's first), one profiled run per
+   arm; gates: mean t_err within 2 cm, every frame's final translation
+   within 2e-5 m of the JAX package's CPU reading, and the fixed point (one
+   more step at the final pose, solved in f64 -- scipy's least_squares for
+   the LM arm -- within a gate set from the card's readings). A planted
+   fault (every 8th match moved one pixel along its row) must cross both.
+6. The record: launches of each kernel on the main paths (the ETH, colour
+   and projective arms); fails unless each ran where its path needs it.
 
 It prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
 power limit line, and as its last line ``{"ok": true, "device": {...}}``.
 The synthetic data (``synth_cloud``, ``eth_true_pose``, ``make_pairs``,
-``synth_depth_frame``, ``prepare_tum_state``, ``tum_base_config``) are
-copies of ``bench.py``'s, with the same seeds; this script imports neither
-JAX nor the JAX package.
+``synth_depth_frame``, ``prepare_tum_state``, ``projective_state``,
+``tum_base_config``) are copies of ``bench.py``'s, with the same seeds; this
+script imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import math
 import subprocess
@@ -108,6 +124,58 @@ TUM_SHIFT = 0.01
 COLOR_T_ERR_TIGHT_M = 1.2e-3
 FIXED_POINT_T_M = 1e-6
 SOLVE_GAP_T_M = 1e-6
+# The projective RGB-D tracker (bench.py:399-437, 470-492; room.py:30-42;
+# main.cpp:183-341): frames 1-8 stride-8 compacted against frame 0
+# image-shaped, window +-12 px; arms "linear" (point-to-plane, the bench's
+# config 2) and "lm" (point-to-point LM, the room run's solver).
+PROJ_SOURCE_STRIDE = 8
+PROJ_WINDOW = 12
+# Rows per frame in each step of the window search's plain version (one
+# unchunked call over 8 x 38,400 rows would build 8.5 GB of candidates).
+PROJ_PLAIN_ROWS = 4096
+# Rows of frame 0 held against the float64 window scan.
+PROJ_CHECK_ROWS = 4096
+# The JAX package's reading of both arms on these frames, on the CPU
+# (scripts/projective_reference_cpu.py: bench.prepare_tum_state's frames
+# through icp.run_icp_batch): per-frame final translations (m) and the mean
+# translation error against the camera shifts.
+JAX_PROJECTIVE_T = {
+    "linear": [
+        [-0.000824596150778234, -0.00017086898151319474, 0.00010577329521765932],
+        [-0.01259005069732666, -0.0001584840501891449, 8.491001790389419e-05],
+        [-0.02115204930305481, -0.0002101334248436615, 6.318125815596431e-05],
+        [-0.033163025975227356, -0.00015084388724062592, 6.335569923976436e-05],
+        [-0.04018717259168625, -0.00019821910245809704, 0.0001048662670655176],
+        [-0.047395169734954834, 0.0011494369246065617, 0.000103008933365345],
+        [-0.054646484553813934, -0.00031858484726399183, 0.00014559004921466112],
+        [-0.0613694041967392, 0.0015484971227124333, 0.00015447793703060597],
+    ],
+    "lm": [
+        [-0.0005392316961660981, -0.0001619825343368575, 0.00011009873560396954],
+        [-0.00931607000529766, -0.0002202578034484759, 8.163996244547889e-05],
+        [-0.019270656630396843, -0.00020040081290062517, 0.00011019577505066991],
+        [-0.029788030311465263, -0.0001868590625235811, 9.08260844880715e-05],
+        [-0.03645975515246391, -0.0002254370047012344, 0.00011839060607599095],
+        [-0.04344067722558975, -0.0002837468055076897, 0.00010706387547543272],
+        [-0.04967668280005455, -0.000335970486048609, 0.00013968600251246244],
+        [-0.0561363585293293, 0.0013692397624254227, 0.00015305385750252753],
+    ],
+}
+JAX_PROJECTIVE_T_ERR_M = {"linear": 0.011084005849552343, "lm": 0.01442156720615458}
+# Gates of the projective arms. The mean translation error is the
+# algorithm's own on these frames (the JAX package reads 11.1 / 14.4 mm:
+# projective correspondences slide on the smooth surface), so the gross
+# gate sits at 2 cm, below the 45 mm of no tracking at all. The tight gates
+# are set from the card's readings (NVIDIA H100 80GB HBM3, 700 W): every
+# frame's final translation within PROJ_JAX_GAP_M of the JAX package's
+# (readings 3.5e-6 m linear, 1.5e-6 m LM), and the fixed point: one more
+# step at the final pose, solved in f64, moves no frame by more than
+# PROJ_FIXED_POINT_T_M (readings 0.462 / 0.511 mm: after 35 iterations the
+# far frames still move, so this bounds the last step; a planted matcher
+# fault read 0.952 / 2.091 mm and a 1.1 cm gap to the JAX reading).
+PROJ_T_ERR_LIMIT_M = 0.02
+PROJ_JAX_GAP_M = 2e-5
+PROJ_FIXED_POINT_T_M = {"linear": 6e-4, "lm": 7e-4}
 # Rows per frame in each window of a plain version's pass over the full
 # 8 x 307,200 rows (one unwindowed call of the plain kd_block_search would
 # gather 570 GB).
@@ -201,6 +269,7 @@ def profile_run(fn, wall_s: float, top: int = 8) -> dict:
     }
 
 
+@functools.lru_cache(maxsize=None)
 def synth_depth_frame(i):
     """Indoor-like 640x480 depth frame: wavy surface + raised boxes
     (furniture with sharp depth steps -> invalid normals at the edges),
@@ -336,7 +405,9 @@ def main() -> int:
                 print(f"    {name}: {line.strip()}")
     rows_eth, launches_eth = eth_phase()
     rows_color, launches_color = color_phase()
-    record(rows_eth, launches_eth, rows_color, launches_color)
+    rows_proj, launches_proj = projective_phase()
+    record(rows_eth, launches_eth, {**rows_color, **rows_proj},
+           collections.Counter(launches_color) + collections.Counter(launches_proj))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1015,13 +1086,363 @@ def fixed_point_step(cfg, fine, targets, fidx, kd, result):
     return float(d64[:, :3, 3].abs().max()), float((d32.double() - d64).abs().max())
 
 
-def record(rows_eth, launches_eth, rows_color, launches_color) -> None:
-    """Phase 5: the kernels line. Each kernel's time, bound and plain time
-    are at the colour path's full shapes (D = 6; the plain version in
+def projective_state(device):
+    """The projective half of the JAX package's ``bench.prepare_tum_state``
+    (``targets_img``, ``sources_ds``): frame 0 image-shaped (640 x 480 =
+    307,200 rows, invalid pixels in place) as every frame's target, and
+    frames 1-8 stride-8 compacted in xyz-Morton order (capacity 38,400) as
+    the sources, on ``device``."""
+    from icp_variants_tpu_torch.data import rgbd
+    from icp_variants_tpu_torch.pipeline import icp
+
+    K = np.array([[TUM_FX, 0, TUM_CX], [0, TUM_FY, TUM_CY], [0, 0, 1]], np.float32)
+    eye = np.eye(4, dtype=np.float32)
+    cap = TUM_W * TUM_H
+    tgt = rgbd.cloud_from_depth(*synth_depth_frame(0), K, eye, keep_original_size=True,
+                                capacity=cap, for_projective=True, device=device)
+    srcs = [rgbd.cloud_from_depth(*synth_depth_frame(i), K, eye, keep_original_size=False,
+                                  downsample_factor=PROJ_SOURCE_STRIDE,
+                                  capacity=cap // PROJ_SOURCE_STRIDE, morton_order=True,
+                                  device=device)
+            for i in range(1, TUM_BATCH_FRAMES + 1)]
+    return icp.stack_clouds([tgt] * TUM_BATCH_FRAMES), icp.stack_clouds(srcs)
+
+
+def projective_configs():
+    """The two arms: ``bench.bench_tum_projective``'s linear point-to-plane
+    configuration, and the room run's (``room.default_config(matching=
+    Matching.PROJECTIVE)``, main.cpp:211-268) point-to-point LM."""
+    from icp_variants_tpu_torch.pipeline.config import ICPConfig, Matching, Metric, Minimizer
+
+    room = ICPConfig(metric=Metric.POINT_TO_POINT, minimizer=Minimizer.NONLINEAR_LM,
+                     n_iterations=TUM_ITERATIONS, max_distance=TUM_MAX_DISTANCE,
+                     matching=Matching.PROJECTIVE)
+    return {
+        "linear": tum_base_config(matching=Matching.PROJECTIVE, projective_chunk=4096),
+        "lm": room.with_camera(fx=TUM_FX, fy=TUM_FY, cx=TUM_CX, cy=TUM_CY, width=TUM_W,
+                               height=TUM_H),
+    }
+
+
+def projective_queries(sources, pose):
+    """Each frame's source points moved by ``pose``, masked rows pinned to
+    the first valid row (as ``run_icp_batch`` does), and their pixels."""
+    import torch
+
+    from icp_variants_tpu_torch.core import se3
+    from icp_variants_tpu_torch.ops import knn, projective
+
+    mask = sources.valid
+    pts = se3.transform_points(sources.points, pose)
+    first = torch.argmax(mask.to(torch.uint8), dim=-1)
+    q = torch.where(mask[..., None], pts, knn.take_rows(pts, first[:, None])).contiguous()
+    return q, projective.project_pixels(q, TUM_FX, TUM_FY, TUM_CX, TUM_CY)
+
+
+def edge_queries(b, device):
+    """512 rows per frame: 384 whose pixels lie on and past each image edge
+    (windows cut by the border or wholly outside it), and 128 projected far
+    off the image, most of them clipped at +-1e6 (z = 0, near-zero z)."""
+    import torch
+
+    rng = np.random.default_rng(3)
+    us = np.array([-13, -12, -7, 0, 5, 11, 12, 13, 320, TUM_W - 14, TUM_W - 13, TUM_W - 1,
+                   TUM_W + 5, TUM_W + 11, TUM_W + 12, TUM_W + 13])
+    vs = np.array([-13, -12, -1, 0, 12, 13, 240, TUM_H - 13, TUM_H - 1, TUM_H + 11,
+                   TUM_H + 12, TUM_H + 13])
+    pu, pv = (g.reshape(-1) for g in np.meshgrid(us, vs))
+    pu, pv = np.tile(pu, 2), np.tile(pv, 2)
+    z = rng.uniform(1.5, 2.5, len(pu))
+    q = np.column_stack([(pu + rng.uniform(-0.45, 0.45, len(pu)) - TUM_CX) / TUM_FX * z,
+                         (pv + rng.uniform(-0.45, 0.45, len(pu)) - TUM_CY) / TUM_FY * z, z])
+    far = np.array([[1e4, 0.0, 1e-3], [-1e4, 0.0, 1e-3], [0.0, 1e4, 1e-3], [0.0, -1e4, 1e-3],
+                    [1e3, 1e3, 0.0], [-1e3, -1e3, 0.0], [1e6, -1e6, 1.0], [0.5, 0.5, 0.0]])
+    q = np.concatenate([q, np.tile(far, (16, 1))])
+    return torch.from_numpy(np.tile(q.astype(np.float32), (b, 1, 1))).to(device)
+
+
+def window_pixels(pix, valid_img):
+    """Per query, the valid in-image pixels within the +-PROJ_WINDOW window
+    of its pixel (the work the search needs), from a summed-area table."""
+    import torch
+
+    b = valid_img.shape[0]
+    sat = torch.nn.functional.pad(
+        valid_img.reshape(b, TUM_H, TUM_W).to(torch.int64).cumsum(1).cumsum(2), (1, 0, 1, 0))
+    flat = sat.reshape(b, -1)
+
+    def at(v, u):
+        return torch.gather(flat, 1, (v * (TUM_W + 1) + u).long().reshape(b, -1)).reshape(v.shape)
+
+    u_lo = torch.clamp(pix[..., 0] - PROJ_WINDOW, 0, TUM_W)
+    u_hi = torch.clamp(pix[..., 0] + PROJ_WINDOW + 1, 0, TUM_W).maximum(u_lo)
+    v_lo = torch.clamp(pix[..., 1] - PROJ_WINDOW, 0, TUM_H)
+    v_hi = torch.clamp(pix[..., 1] + PROJ_WINDOW + 1, 0, TUM_H).maximum(v_lo)
+    return at(v_hi, u_hi) - at(v_lo, u_hi) - at(v_hi, u_lo) + at(v_lo, u_lo)
+
+
+def window_scan_f64(q, pix, img, ok):
+    """Independent reference in numpy float64: per query the squared
+    distance of every valid in-image pixel within +-PROJ_WINDOW of its
+    pixel. Returns the (M, S, S) distances (inf elsewhere) and linear
+    pixels."""
+    d = np.arange(-PROJ_WINDOW, PROJ_WINDOW + 1)
+    uu = pix[:, 0, None, None] + d[None, None, :]
+    vv = pix[:, 1, None, None] + d[None, :, None]
+    inside = (uu >= 0) & (uu < TUM_W) & (vv >= 0) & (vv < TUM_H)
+    lin = np.where(inside, vv * TUM_W + uu, 0)
+    d2 = ((img[lin] - q[:, None, None, :]) ** 2).sum(-1)
+    return np.where(inside & ok[lin], d2, np.inf), lin
+
+
+def projective_phase():
+    """Phase 5 on the card: the projective RGB-D tracker; returns its kernel
+    row and the launches of its main-path runs. Raises :class:`Failure`."""
+    import torch
+
+    from icp_variants_tpu_torch.ops import projective
+    from icp_variants_tpu_torch.pipeline import icp
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    targets, sources = projective_state(dev)
+    cfgs = projective_configs()
+    b, n = sources.valid.shape
+    print(f"phase 5: projective path, {b} frames x {n} source rows against {targets.capacity}-row "
+          f"image targets x {TUM_ITERATIONS} iterations; host data "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def run(arm, seed):
+        return icp.run_icp_batch(cfgs[arm], sources, targets, seed=seed, device=dev)
+
+    t0 = time.perf_counter()
+    warm = {arm: run(arm, 1) for arm in cfgs}
+    sync()
+    print(f"  warm-up runs: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- the kernel against its plain version, every row -------------------
+    tp, tv = targets.points, targets.valid
+    kw = dict(width=TUM_W, height=TUM_H, window=PROJ_WINDOW)
+    thr = TUM_MAX_DISTANCE
+
+    def compare(q, pix, mask, what):
+        ki, kd = projective.projective_window_search(q, pix, tp, tv, **kw)
+        pi, pd = projective.projective_match_plain(q, pix, tp, tv, chunk=PROJ_PLAIN_ROWS, **kw)
+        sync()
+        check(torch.equal(ki, pi) and torch.equal(kd, pd)
+              and torch.equal((kd <= thr) & mask, (pd <= thr) & mask),
+              f"projective_window_search {what} (all {q.shape[0]} x {q.shape[1]} rows): idx, "
+              f"d2 and valid equal to plain; {int((ki < 0).sum())} rows find no pixel")
+        return ki, kd
+
+    q_id, pix_id = projective_queries(sources, torch.eye(4, device=dev).expand(b, 4, 4))
+    compare(q_id, pix_id, sources.valid, "at the identity pose")
+    q_fin, pix_fin = projective_queries(sources, warm["linear"].pose)
+    ki, kd = compare(q_fin, pix_fin, sources.valid, "at the linear warm-up's final poses")
+    q_edge = edge_queries(b, dev)
+    pix_edge = projective.project_pixels(q_edge, TUM_FX, TUM_FY, TUM_CX, TUM_CY)
+    ei, _ = compare(q_edge, pix_edge, torch.ones_like(q_edge[..., 0], dtype=torch.bool),
+                    "on rows at and past the image edges")
+    check(bool((ei < 0).any()) and bool((ei >= 0).any())
+          and bool((pix_edge.abs() == 1_000_000).any()),
+          "the edge rows hold found rows, misses and clipped projections")
+    need = window_pixels(pix_fin, tv)
+    ms = time_ms(lambda: projective.projective_window_search(q_fin, pix_fin, tp, tv, **kw), 20)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    projective.projective_match_plain(q_fin, pix_fin, tp, tv, chunk=PROJ_PLAIN_ROWS, **kw)
+    end.record()
+    end.synchronize()
+    row = dict(
+        err=0.0, shapes=f"{b} x {n} queries, {b} x {TUM_W} x {TUM_H} image targets, window "
+                        f"+-{PROJ_WINDOW}", ms=ms, plain_ms=start.elapsed_time(end),
+        plain_on=f"the same rows, {PROJ_PLAIN_ROWS} rows per frame per step",
+        bound=bound(b * n * (3 + 2 + 2) * 4 + b * TUM_W * TUM_H * (3 * 4 + 1),
+                    int(need.sum()) * 9))
+    print(f"  projective_window_search: kernel {ms:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+          f"bound {row['bound'][0]:.5f} ms ({row['bound'][1]}); {float(need.float().mean()):.1f} "
+          f"valid pixels per window on average", flush=True)
+
+    # ---- independent check: a float64 window scan on 4,096 rows of frame 0 --
+    rows = torch.nonzero(sources.valid[0]).flatten()
+    rows = rows[torch.linspace(0, len(rows) - 1, PROJ_CHECK_ROWS, device=dev).long()]
+    img = tp[0].cpu().numpy().astype(np.float64)
+    ok = tv[0].cpu().numpy()
+    q64 = q_fin[0, rows].cpu().numpy().astype(np.float64)
+    d2_64, lin = window_scan_f64(q64, pix_fin[0, rows].cpu().numpy().astype(np.int64), img, ok)
+    m64 = d2_64.reshape(len(rows), -1).min(1)
+    k_i, k_d = ki[0, rows].cpu().numpy(), kd[0, rows].cpu().numpy()
+    found = k_i >= 0
+    in_window = np.array([k_i[j] in lin[j][np.isfinite(d2_64[j])] for j in range(len(rows))])
+    kd64 = ((img[np.clip(k_i, 0, None)] - q64) ** 2).sum(1)
+    eps = np.finfo(np.float32).eps
+    check(bool(np.all(in_window[found])) and bool(np.all(np.isinf(m64[~found])))
+          and bool(np.all(kd64[found] <= m64[found] * (1 + 8 * eps) + 1e-12))
+          and np.allclose(k_d[found], m64[found], rtol=1e-5, atol=1e-9)
+          and bool(np.all(m64[k_d > thr] > thr * (1 - 1e-5))),
+          f"projective_window_search == a float64 window scan on {len(rows)} rows of frame 0 "
+          f"at its final pose ({int(found.sum())} found, {int((k_d <= thr).sum())} within the "
+          "threshold; every miss has no valid pixel within it)")
+
+    # ---- both arms end to end ----------------------------------------------
+    walls, issues, counts, results = timed_runs(
+        {arm: (lambda seed, arm=arm: run(arm, seed)) for arm in cfgs})
+    arms = {}
+    for arm in cfgs:
+        dt, issued = float(np.median(walls[arm])), float(np.median(issues[arm]))
+        poses = results[arm].pose.cpu().numpy().astype(np.float64)
+        nm = results[arm].trace.num_matches.cpu().numpy()
+        check(poses.shape == (b, 4, 4) and np.isfinite(poses).all(),
+              f"projective {arm}: {b} finite 4x4 poses")
+        t_errs, r_errs = color_errors(poses)
+        gap = np.abs(poses[:, :3, 3] - np.asarray(JAX_PROJECTIVE_T[arm])).max(1)
+        arms[arm] = dict(
+            frames_per_s=b / dt, seconds=dt, seconds_each=walls[arm], host_issue_s=issued,
+            t_err_m=float(np.mean(t_errs)), t_err_each_m=t_errs, r_err_deg=float(np.mean(r_errs)),
+            translations=poses[:, :3, 3].tolist(), jax_gap_m=gap.tolist(),
+            mean_matches_per_iter=float(nm.mean()), launches=counts[arm])
+        print(f"  projective {arm}: {b / dt:.4f} frames/s (median of {N_TIMED_RUNS} runs: "
+              f"{dt:.4f} s per batch, host issue {issued:.4f} s; runs "
+              f"{[round(w, 4) for w in walls[arm]]}), mean t_err {np.mean(t_errs) * 1e3:.4f} mm "
+              f"(the JAX package's CPU reading {JAX_PROJECTIVE_T_ERR_M[arm] * 1e3:.4f} mm), mean "
+              f"r_err {np.mean(r_errs):.6f} deg, matches/iter {nm.mean():.1f}, per-frame "
+              f"translation gap to the JAX package's CPU reading max {gap.max():.3e} m, "
+              f"launches {counts[arm]}", flush=True)
+        check(counts[arm].get("projective_window_search", 0) == TUM_ITERATIONS,
+              f"projective {arm}: projective_window_search launched {TUM_ITERATIONS} times")
+    for arm in cfgs:
+        prof = profile_run(lambda: run(arm, 99), arms[arm]["seconds"], top=10)
+        arms[arm].update(prof)
+        print(f"  projective {arm} profile: device {prof['device_ms']} ms, busy share "
+              f"{prof.get('device_busy_share')}, {prof.get('kernel_launches')} launches")
+        for name, t in prof.get("device_ms_by_kernel", {}).items():
+            print(f"    device {t:9.3f} ms  {name}")
+
+    # ---- the fixed point, and what the gates see of a planted fault ----------
+    for arm in cfgs:
+        steps, gap = projective_fixed_point(cfgs[arm], sources, targets, results[arm].pose)
+        arms[arm].update(fixed_point_step_m=max(steps), fixed_point_steps_m=steps,
+                         f32_f64_solve_gap=gap)
+        print(f"  projective {arm}: one more step at the final pose, solved in f64, moves a "
+              f"frame by at most {max(steps) * 1e3:.6f} mm (per frame "
+              f"{[round(x * 1e3, 6) for x in steps]} mm); the f32 solve of that step differs "
+              f"from it by {gap:.3e}", flush=True)
+    real_search = projective.projective_window_search
+
+    def planted(*args, **kwargs):
+        idx, d2 = real_search(*args, **kwargs)
+        row_i = torch.arange(idx.shape[-1], device=idx.device)
+        moved = torch.where(idx % TUM_W < TUM_W - 1, idx + 1, idx - 1)
+        return torch.where((idx >= 0) & (row_i % 8 == 0), moved, idx), d2
+
+    probes = {}
+    projective.projective_window_search = planted
+    try:
+        faulty = {arm: run(arm, 8) for arm in cfgs}
+        sync()
+    finally:
+        projective.projective_window_search = real_search
+    for arm in cfgs:
+        poses = faulty[arm].pose.cpu().numpy().astype(np.float64)
+        step = max(projective_fixed_point(cfgs[arm], sources, targets, faulty[arm].pose)[0])
+        probes[arm] = dict(
+            t_err_m=float(np.mean(color_errors(poses)[0])), fixed_point_step_m=step,
+            jax_gap_m=float(np.abs(poses[:, :3, 3] - np.asarray(JAX_PROJECTIVE_T[arm])).max()))
+        arms[arm]["probe_planted_fault"] = probes[arm]
+        print(f"  probe, {arm} with every 8th match moved to the next pixel of its row: mean "
+              f"t_err {probes[arm]['t_err_m'] * 1e3:.4f} mm, fixed-point step "
+              f"{step * 1e3:.6f} mm, gap to the JAX reading {probes[arm]['jax_gap_m']:.3e} m",
+              flush=True)
+    print("  projective path: " + json.dumps(arms))
+    # The gates, after every reading is printed.
+    for arm in cfgs:
+        check(arms[arm]["t_err_m"] <= PROJ_T_ERR_LIMIT_M,
+              f"projective {arm}: mean t_err <= {PROJ_T_ERR_LIMIT_M * 1e3:g} mm")
+        check(max(arms[arm]["jax_gap_m"]) <= PROJ_JAX_GAP_M,
+              f"projective {arm}: every frame's final translation within "
+              f"{PROJ_JAX_GAP_M:g} m of the JAX package's CPU reading")
+        check(arms[arm]["fixed_point_step_m"] <= PROJ_FIXED_POINT_T_M[arm],
+              f"projective {arm}: one more f64-solved step moves no frame by more than "
+              f"{PROJ_FIXED_POINT_T_M[arm] * 1e3:g} mm")
+        check(probes[arm]["fixed_point_step_m"] > PROJ_FIXED_POINT_T_M[arm]
+              and probes[arm]["jax_gap_m"] > PROJ_JAX_GAP_M,
+              f"projective {arm}: the planted fault crosses the fixed-point gate and the "
+              "agreement with the JAX package's reading")
+    launches = collections.Counter()
+    for arm in cfgs:
+        launches.update(counts[arm])
+    return {"projective_window_search": row}, dict(launches)
+
+
+def projective_fixed_point(cfg, sources, targets, pose):
+    """One more iteration of the projective tracker at ``pose``, as
+    ``run_icp_batch`` runs it (the window search on the card, target rows,
+    normal-angle rejection, constant weights), its increment solved in f32
+    by the arm's solver and in f64: the linear point-to-plane solve in f64,
+    or for the LM arm scipy's ``least_squares`` on the same point-to-point
+    residuals (solved to convergence). Returns each frame's largest
+    translation component of the f64 increment (m) and the largest entry
+    gap between the f32 and f64 increments (4x4)."""
+    import torch
+    from scipy.optimize import least_squares
+    from scipy.spatial.transform import Rotation
+
+    from icp_variants_tpu_torch.core import se3
+    from icp_variants_tpu_torch.ops import knn, projective, rejection
+    from icp_variants_tpu_torch.pipeline import icp
+    from icp_variants_tpu_torch.pipeline.config import Minimizer
+    from icp_variants_tpu_torch.solvers import gauss_newton, linear
+
+    q, _ = projective_queries(sources, pose)
+    idx, _, valid = projective.projective_match(
+        q, targets.points, targets.valid, fx=TUM_FX, fy=TUM_FY, cx=TUM_CX, cy=TUM_CY,
+        width=TUM_W, height=TUM_H, window=PROJ_WINDOW, max_distance=cfg.max_distance,
+        query_mask=sources.valid)
+    tgt = knn.take_rows(icp._fuse_cloud_table(targets), idx.clamp(0, targets.capacity - 1))
+    valid = valid & (tgt[..., 6] > 0.5)
+    src_n = se3.transform_normals(sources.normals, pose)
+    if cfg.rejection:
+        valid = rejection.normal_angle_mask(src_n, tgt[..., 3:6], valid)
+    w = torch.ones(valid.shape, device=valid.device)
+    if cfg.minimizer == Minimizer.LINEAR:
+        d32, d64 = (linear.estimate_pose_point_to_plane(
+            q.to(dt), tgt[..., :3].to(dt), tgt[..., 3:6].to(dt), w.to(dt), valid)
+            for dt in (torch.float32, torch.float64))
+        return (d64[:, :3, 3].abs().amax(-1).tolist(),
+                float((d32.double() - d64).abs().max()))
+    d32 = gauss_newton.estimate_pose_lm(
+        cfg.metric, q, tgt[..., :3], src_n, tgt[..., 3:6], w, valid,
+        max_iterations=cfg.lm_max_inner_iterations,
+        function_tolerance=cfg.lm_function_tolerance).double().cpu().numpy()
+    steps, gap = [], 0.0
+    for i in range(q.shape[0]):
+        keep = valid[i].cpu().numpy()
+        s = q[i].cpu().numpy().astype(np.float64)[keep]
+        d = tgt[i, :, :3].cpu().numpy().astype(np.float64)[keep]
+
+        def resid(x, s=s, d=d):
+            R = Rotation.from_rotvec(x[:3]).as_matrix()
+            return (0.1 * (s @ R.T + x[3:] - d)).reshape(-1)
+
+        x = least_squares(resid, np.zeros(6), method="lm", xtol=1e-12, ftol=1e-12,
+                          gtol=1e-12).x
+        inc = np.eye(4)
+        inc[:3, :3], inc[:3, 3] = Rotation.from_rotvec(x[:3]).as_matrix(), x[3:]
+        steps.append(float(np.abs(x[3:]).max()))
+        gap = max(gap, float(np.abs(d32[i] - inc).max()))
+    return steps, gap
+
+
+def record(rows_eth, launches_eth, rows, launches) -> None:
+    """Phase 6: the kernels line. Each kd kernel's time, bound and plain
+    time are at the colour path's full shapes (D = 6; the plain version in
     windows of rows, visited_search's on the live rows only), its ETH
-    numbers (D = 3, full shapes) under ``eth``, its launches summed over
-    both paths' main runs."""
-    print("phase 5: the record", flush=True)
+    numbers (D = 3, full shapes) under ``eth``; the projective window
+    search's at the projective path's; launches are summed over every
+    path's main runs."""
+    print("phase 6: the record", flush=True)
     sources_of = {
         "box_topk": ("icp_variants_tpu_torch/csrc/box_topk.cu",
                      "icp_variants_tpu/ops/kdtree.py:501"),
@@ -1031,19 +1452,24 @@ def record(rows_eth, launches_eth, rows_color, launches_color) -> None:
                            "icp_variants_tpu/ops/knn.py:500"),
         "cached_block_search": ("icp_variants_tpu_torch/csrc/cached_block_search.cu",
                                 "icp_variants_tpu/ops/kdtree.py:671"),
+        "projective_window_search": (
+            "icp_variants_tpu_torch/csrc/projective_window_search.cu",
+            "icp_variants_tpu/ops/knn.py:1321"),
     }
     kernels = []
     for name, (src, replaces) in sources_of.items():
-        c, e = rows_color[name], rows_eth.get(name)
-        launches = launches_eth.get(name, 0) + launches_color.get(name, 0)
-        check(launches > 0, f"{name}: launched {launches} times on the main paths")
+        c, e = rows[name], rows_eth.get(name)
+        n_launch = launches_eth.get(name, 0) + launches.get(name, 0)
+        check(n_launch > 0, f"{name}: launched {n_launch} times on the main paths")
         entry = dict(
-            name=name, route="cuda", source=src, replaces=replaces, launches=launches,
+            name=name, route="cuda", source=src, replaces=replaces, launches=n_launch,
             max_abs_err=max(c["err"], e["err"] if e else 0.0), ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound"][0], bound_by=c["bound"][1],
             library_ms=None, shapes=c["shapes"], plain_on=c["plain_on"])
         if name == "cached_block_search":
             entry["also_replaces"] = "icp_variants_tpu/ops/knn.py:1321 (restrict_col mode)"
+        if name == "projective_window_search":
+            entry["mode"] = "pixel_window"
         if e is not None:
             entry["eth"] = dict(ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound"][0],
                                 bound_by=e["bound"][1], max_abs_err=e["err"],

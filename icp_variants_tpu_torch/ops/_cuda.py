@@ -39,12 +39,13 @@ NVCC_FLAGS = [
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# Features per point the kernels are built for (``D`` of the templates in
-# ``csrc/``): 3 for geometry, 6 for the colour-ICP features.
+# Features per point the kd kernels are built for (``D`` of the templates
+# in ``csrc/``): 3 for geometry, 6 for the colour-ICP features.
 KERNEL_DIMS = (3, 6)
 
 # kernel name -> (source file, C function, ctypes argtypes); every C
-# function ends with (..., int D, void* stream).
+# function ends with (..., void* stream), and the four kd kernels' with
+# (..., int D, void* stream). projective_window_search takes geometry only.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "box_topk": ("box_topk.cu", "box_topk_launch", [_P] * 6 + [_I] * 5 + [_P]),
@@ -55,6 +56,9 @@ KERNELS = {
     "cached_block_search": (
         "cached_block_search.cu", "cached_block_search_launch",
         [_P, _P, _F] + [_P] * 3 + [_I] * 5 + [_P]),
+    "projective_window_search": (
+        "projective_window_search.cu", "projective_window_search_launch",
+        [_P] * 6 + [_I] * 6 + [_P]),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

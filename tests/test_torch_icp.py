@@ -257,11 +257,15 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(data, monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    dict(minimizer=tconfig.Minimizer.NONLINEAR_LM),
     dict(metric=tconfig.Metric.POINT_TO_POINT),
-    dict(matching=tconfig.Matching.PROJECTIVE),
-])
+    dict(metric=tconfig.Metric.GICP),
+    dict(metric=tconfig.Metric.GICP, minimizer=tconfig.Minimizer.NONLINEAR_LM),
+    dict(anderson_m=3),
+], ids=["point_to_point-linear", "gicp-linear", "gicp-lm", "anderson"])
 def test_unported_options_raise(data, change):
+    """Options the port does not run yet raise and name their ROADMAP.md
+    item. Anderson acceleration used to be ignored silently: the JAX
+    driver mixes the pose whenever anderson_m > 0."""
     _, tcfg = _cfgs(16)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ticp.run_icp_batch(tcfg.replace(n_iterations=1, **change), data["ts"], data["tt"],

@@ -27,6 +27,7 @@ from icp_variants_tpu_torch import convert
 from icp_variants_tpu_torch.ops import _cuda
 from icp_variants_tpu_torch.ops import kdtree as tkd
 from icp_variants_tpu_torch.ops import knn as tknn
+from icp_variants_tpu_torch.ops import projective as tproj
 
 torch.set_num_threads(2)
 
@@ -287,8 +288,9 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 @pytest.mark.parametrize("d", [3, 6])
 def test_kernels_match_plain_on_card(d):
     """Each CUDA kernel against its plain version on the card, at D = 3 and
-    the colour features' D = 6, the cached block search with -1 rows (the
-    full-size check is chip_smoke.py's)."""
+    the colour features' D = 6, the cached block search with -1 rows, and
+    at D = 3 the projective window search (the full-size checks are
+    chip_smoke.py's)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     q, t = _clouds(n_q=1000, seed=10)
@@ -317,3 +319,21 @@ def test_kernels_match_plain_on_card(d):
     radius[:, ::3] = -1.0
     assert all(torch.equal(a, b) for a, b in zip(
         tknn.visited_search(qc, radius, fi), tknn.visited_search_plain(qc, radius, fi)))
+    if d == 3:
+        # The projective window search on a 96 x 64 image seen from 2 m,
+        # queries near it and off its edges.
+        w_img, h_img = 96, 64
+        rng = np.random.default_rng(12)
+        vv, uu = np.meshgrid(np.arange(h_img), np.arange(w_img), indexing="ij")
+        z = 2.0 + 0.1 * np.sin(uu / 7.0) * np.cos(vv / 5.0)
+        img = np.stack([(uu - 47.5) / 80.0 * z, (vv - 31.5) / 80.0 * z, z], -1)
+        img = torch.from_numpy(img.reshape(1, -1, 3).astype(np.float32)).to(dev)
+        ok = torch.from_numpy(rng.random((1, w_img * h_img)) > 0.1).to(dev)
+        pq = (img[:, rng.integers(0, w_img * h_img, 1000)]
+              + torch.from_numpy(rng.normal(0, 0.3, (1, 1000, 3)).astype(np.float32)).to(dev))
+        pix = tproj.project_pixels(pq, 80.0, 80.0, 47.5, 31.5)
+        kw = dict(width=w_img, height=h_img, window=12)
+        got = tproj.projective_window_search(pq, pix, img, ok, **kw)
+        want = tproj.projective_match_plain(pq, pix, img, ok, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert bool((got[0] >= 0).any()) and bool((got[0] < 0).any())

@@ -87,3 +87,70 @@ def test_measures_match_jax():
         np.testing.assert_allclose(
             t_bench[i], np.asarray(jmeasure.benchmark_error(poses[i], src[i], tgt[i], valid[i])),
             rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The LM solver (solvers/gauss_newton.py), mirroring tests/test_solvers.py's
+# TestLM cases against the JAX package's solve_lm. Tolerances: increments
+# to 1e-6 and costs to rtol 1e-5 on the well-posed sheets (the f32 normal
+# equations sum in another order; the last accepted steps move the
+# increment by less than that); the number of accepted steps is compared
+# where a step is rejected before convergence, not on the noise floor,
+# where either side may accept a last step whose cost decrease is f32 noise.
+# ---------------------------------------------------------------------------
+
+from icp_variants_tpu.pipeline.config import Metric as JMetric  # noqa: E402
+from icp_variants_tpu.solvers import gauss_newton as jgn  # noqa: E402
+from icp_variants_tpu_torch.pipeline.config import Metric as TMetric  # noqa: E402
+from icp_variants_tpu_torch.solvers import gauss_newton as tgn  # noqa: E402
+
+
+@pytest.mark.parametrize("metric", ["POINT_TO_POINT", "POINT_TO_PLANE", "SYMMETRIC"])
+def test_lm_matches_jax(metric):
+    """Three pairs in one batched call, with NaN source and target normals
+    and masked rows, against JAX pair by pair; the 4x4 increments agree
+    too."""
+    src, tgt, ns, nt, w, valid = _matches(5)
+    nt[:, ::17] = np.nan
+    tr = tgn.solve_lm(getattr(TMetric, metric), *(_t(x) for x in (src, tgt, ns, nt, w, valid)))
+    tpose = tgn.estimate_pose_lm(getattr(TMetric, metric),
+                                 *(_t(x) for x in (src, tgt, ns, nt, w, valid)))
+    assert tr.increment.shape == (3, 6) and tpose.shape == (3, 4, 4)
+    for i in range(len(src)):
+        args = (src[i], tgt[i], ns[i], nt[i], w[i], valid[i])
+        jr = jgn.solve_lm(getattr(JMetric, metric), *args)
+        np.testing.assert_allclose(tr.increment[i].numpy(), np.asarray(jr.increment), atol=1e-6)
+        np.testing.assert_allclose(tr.cost[i].numpy(), np.asarray(jr.cost), rtol=1e-5)
+        np.testing.assert_allclose(tr.initial_cost[i].numpy(), np.asarray(jr.initial_cost),
+                                   rtol=1e-5)
+        assert int(tr.n_accepted[i]) >= 1
+        np.testing.assert_allclose(
+            tpose[i].numpy(), np.asarray(jgn.estimate_pose_lm(getattr(JMetric, metric), *args)),
+            atol=1e-6)
+    assert torch.isfinite(tpose).all()
+
+
+def test_lm_rejected_steps_match_jax():
+    """A deliberately non-rigid fit (a line along x against one along y)
+    whose second and third LM steps raise the cost and are rejected in both
+    packages (mu grows, x stays). The f32 solve of this ill-conditioned
+    problem is compared to 2e-5."""
+    rng = np.random.default_rng(0)
+    src = (rng.standard_normal((100, 3)) * [3, 0.05, 0.05]).astype(np.float32)
+    tgt = (rng.standard_normal((100, 3)) * [0.05, 3, 0.05]).astype(np.float32)
+    nrm = rng.standard_normal((100, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    w, valid = np.ones(100, np.float32), np.ones(100, bool)
+    jr = jgn.solve_lm(JMetric.POINT_TO_PLANE, src, tgt, nrm, nrm, w, valid, max_iterations=3)
+    tr = tgn.solve_lm(TMetric.POINT_TO_PLANE,
+                      *(_t(x)[None] for x in (src, tgt, nrm, nrm, w, valid)), max_iterations=3)
+    assert int(jr.n_accepted) == 1 and int(tr.n_accepted[0]) == 1
+    np.testing.assert_allclose(tr.increment[0].numpy(), np.asarray(jr.increment), atol=2e-5)
+    np.testing.assert_allclose(tr.cost[0].numpy(), np.asarray(jr.cost), rtol=1e-5)
+    assert float(tr.cost[0]) < float(tr.initial_cost[0])
+
+
+def test_lm_gicp_is_not_ported():
+    src, tgt, ns, nt, w, valid = _matches(6, b=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tgn.solve_lm(TMetric.GICP, *(_t(x) for x in (src, tgt, ns, nt, w, valid)))
