@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py            # the full run, three to six minutes
+    python3 chip_smoke.py            # the full run, six to ten minutes
 
 Phases, in order; any failure exits nonzero:
 
@@ -30,16 +30,19 @@ Phases, in order; any failure exits nonzero:
    Morton order) tracked against frame 0 by
    ``run_icp_batch_multires_segmented``: point-to-plane linear ICP, 35
    iterations, squared max distance 0.1 in the 6-dim feature space,
-   SELECT_ALL; exact arm (128 kd blocks) and checks16 arm (256 kd blocks,
-   the stride-1 level seeded from the stride-2 level's blocks). A warm-up
-   run per arm; then every kernel at D = 6 against its plain version at the
+   SELECT_ALL; exact arm (128 kd blocks, warm start) and checks16 arm (256
+   kd blocks, the stride-1 level seeded from the stride-2 level's blocks).
+   A warm-up run per arm; then every kernel at D = 6 against its plain
+   version (kd_radius_search at k = 0 on one frame's warm radii) at the
    full fine-level shapes, 8 x 307,200 rows at the warm-up's final poses
    (-1 rows included; the plain versions in windows of rows;
    visited_search at the exact arm's real fallback radii, and all rows live
    on a subset), each timed there; then timed runs in turns (median
    frames/s, launches on each arm's first), one profiled run per arm, the
    mean translation / rotation error against the known camera shifts
-   (gated at 1 cm and at a tighter gate set from the card's readings), at
+   (gated at 1 cm and at a tighter gate set from the card's readings), the
+   exact arm's warm run against one cold run (equal match counts per
+   iteration, poses within rtol 1e-4 / atol 1e-5), at
    frame 0's final pose each arm's matcher against cKDTree over the 6-dim
    target features, and the fixed point: one more stride-1 step at each
    arm's final pose, solved in f64 on the same matches, must barely move
@@ -61,15 +64,34 @@ Phases, in order; any failure exits nonzero:
    more step at the final pose, solved in f64 -- scipy's least_squares for
    the LM arm -- within a gate set from the card's readings). A planted
    fault (every 8th match moved one pixel along its row) must cross both.
-6. The record: launches of each kernel on the main paths (the ETH, colour
-   and projective arms); fails unless each ran where its path needs it.
+6. The dense exact path past the resident rule: 4 pairs of 1,000,000-point
+   indoor scans (``bench.make_indoor_pairs``' scene, source and target
+   sampled independently, ~70% overlap), symmetric linear ICP, SELECT_ALL,
+   exact arm, squared max distance 10, 50 iterations, warm start on, kd
+   indexes of 512 blocks x 2,048 slots built by the caller and passed to
+   ``run_icp_batch`` (``build_kd_for`` gives None past the rule): the warm
+   matcher's route through box_topk + kd_radius_search. One warm-up run,
+   one cold run (``kd_warm_start=False``) that the warm runs must equal
+   (match counts per iteration, poses within rtol 1e-4 / atol 1e-5), 5
+   timed warm runs (median pairs/s) and a profiled one; kd_radius_search
+   against its plain version on every row at the first iteration's radii
+   and at the final pose's cached radii (k = 4) and on pair 0 at k = 0;
+   pair 0's warm matcher at its final pose against cKDTree on all rows; the
+   mean error against the true poses under a gross gate. Then one
+   600,000-point pair, whose table the JAX package serves in its packed
+   mode: two match_kd_warm calls and kd_block_search against its plain
+   version on every row.
+7. The record: launches of each kernel on the main paths (the ETH, colour,
+   projective and dense arms); fails unless each ran where its path needs
+   it.
 
 It prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
 power limit line, and as its last line ``{"ok": true, "device": {...}}``.
 The synthetic data (``synth_cloud``, ``eth_true_pose``, ``make_pairs``,
 ``synth_depth_frame``, ``prepare_tum_state``, ``projective_state``,
-``tum_base_config``) are copies of ``bench.py``'s, with the same seeds; this
-script imports neither JAX nor the JAX package.
+``tum_base_config``, ``synth_indoor_cloud``, ``make_indoor_pairs``) are
+copies of ``bench.py``'s, with the same seeds; this script imports neither
+JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -183,6 +205,21 @@ PLAIN_CHUNK_ROWS = 2048
 # Rows per frame of the all-live visited_search comparison: four windows
 # of 512 consecutive rows (all rows live at full size is impractical).
 SUBSET_WINDOW, SUBSET_WINDOWS = 512, 4
+# The dense exact path past the resident rule: bench.make_indoor_pairs'
+# scene at 1,000,000 points a cloud (a 512 x 2,048 kd table: past both of
+# the JAX package's resident layouts), and one 600,000-point pair (256 x
+# 2,432, where the JAX package takes its packed layout).
+DENSE_POINTS = 1_000_000
+DENSE_PAIRS = 4
+DENSE_PACKED_POINTS = 600_000
+# Gross gates on the dense path's mean errors against the true poses, set
+# from the card's readings (NVIDIA H100 80GB HBM3, 700 W: 16.44 mm and
+# 0.0152 deg; per pair 14.9-17.5 mm). The error is the algorithm's own: the
+# source and target are sampled independently and overlap ~70%, and every
+# source point within sqrt(10) m of the target matches. The tight gate of
+# this path is warm against cold.
+DENSE_T_ERR_LIMIT_M = 0.025
+DENSE_R_ERR_LIMIT_DEG = 0.05
 
 
 def synth_cloud(n, seed):
@@ -228,6 +265,99 @@ def make_pairs(n_pairs=BATCH_PAIRS, n_points=N_POINTS):
         R, shift = T[:3, :3], T[:3, 3]
         src_pts = (tgt_pts @ R.T + shift).astype(np.float32)
         src_nrm = (tgt_nrm @ R.T).astype(np.float32)
+        pairs.append((src_pts, src_nrm, tgt_pts, tgt_nrm))
+    return pairs
+
+
+def synth_indoor_cloud(n, seed, sensor=(10.0, 7.5, 1.5), crop=None):
+    """Indoor-like multi-surface scene at ETH-Apartment scale: floor, two
+    walls and four boxes, a 1/r^2 density falloff from a sensor origin and
+    8 mm surface noise; ``crop=(xlo, xhi)`` keeps that x window before the
+    resampling. Returns ``(points, normals)`` with exactly ``n`` rows."""
+    rng = np.random.default_rng(seed)
+    boxes = [
+        (4.0, 3.0, 1.2, 2.0, 0.8),     # x, y, w, d, h
+        (13.0, 9.0, 2.5, 1.0, 1.1),
+        (8.0, 11.0, 1.0, 1.0, 0.5),
+        (16.0, 4.0, 1.5, 2.2, 0.7),
+    ]
+    surfaces = [("floor", None, 20.0 * 15.0),
+                ("wallx", None, 20.0 * 3.0),
+                ("wally", None, 15.0 * 3.0)]
+    for b in boxes:
+        x, y, w, d, h = b
+        surfaces.append(("boxtop", b, w * d))
+        surfaces.append(("boxside", b, 2 * (w + d) * h))
+    areas = np.array([s[2] for s in surfaces])
+    m = 3 * n
+    counts = rng.multinomial(m, areas / areas.sum())
+    pts_l, nrm_l = [], []
+    for (kind, b, _), c in zip(surfaces, counts):
+        if c == 0:
+            continue
+        u, v = rng.random(c), rng.random(c)
+        if kind == "floor":
+            p = np.column_stack([20 * u, 15 * v, np.zeros(c)])
+            nm = np.tile([0.0, 0.0, 1.0], (c, 1))
+        elif kind == "wallx":
+            p = np.column_stack([20 * u, np.zeros(c), 3 * v])
+            nm = np.tile([0.0, 1.0, 0.0], (c, 1))
+        elif kind == "wally":
+            p = np.column_stack([np.zeros(c), 15 * u, 3 * v])
+            nm = np.tile([1.0, 0.0, 0.0], (c, 1))
+        elif kind == "boxtop":
+            x, y, w, d, h = b
+            p = np.column_stack([x + w * (u - 0.5), y + d * (v - 0.5), np.full(c, h)])
+            nm = np.tile([0.0, 0.0, 1.0], (c, 1))
+        else:
+            x, y, w, d, h = b
+            t = u * 2 * (w + d)
+            px = np.where(t < w, x - w / 2 + t,
+                          np.where(t < w + d, x + w / 2,
+                                   np.where(t < 2 * w + d, x + w / 2 - (t - w - d), x - w / 2)))
+            py = np.where(t < w, y - d / 2,
+                          np.where(t < w + d, y - d / 2 + (t - w),
+                                   np.where(t < 2 * w + d, y + d / 2, y + d / 2 - (t - 2 * w - d))))
+            p = np.column_stack([px, py, h * v])
+            nx = np.where(t < w, 0.0, np.where(t < w + d, 1.0, np.where(t < 2 * w + d, 0.0, -1.0)))
+            ny = np.where(t < w, -1.0, np.where(t < w + d, 0.0, np.where(t < 2 * w + d, 1.0, 0.0)))
+            nm = np.column_stack([nx, ny, np.zeros(c)])
+        pts_l.append(p)
+        nrm_l.append(nm)
+    pts = np.concatenate(pts_l).astype(np.float32)
+    nrm = np.concatenate(nrm_l).astype(np.float32)
+    if crop is not None:
+        keep = (pts[:, 0] >= crop[0]) & (pts[:, 0] <= crop[1])
+        pts, nrm = pts[keep], nrm[keep]
+    r2 = np.sum((pts - np.asarray(sensor, np.float32)) ** 2, axis=1)
+    w8 = 1.0 / np.maximum(r2, 1.0)
+    rows = rng.choice(len(pts), size=n, replace=True, p=w8 / w8.sum())
+    pts, nrm = pts[rows], nrm[rows]
+    pts = pts + rng.normal(0, 0.008, pts.shape).astype(np.float32)
+    return pts.astype(np.float32), nrm
+
+
+def indoor_true_pose(i):
+    """The rigid perturbation applied to indoor pair i's source."""
+    ang = 0.04 + 0.008 * i
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = np.array([[np.cos(ang), -np.sin(ang), 0],
+                          [np.sin(ang), np.cos(ang), 0], [0, 0, 1]], np.float32)
+    T[:3, 3] = np.array([0.4 - 0.06 * i, -0.25 + 0.04 * i, 0.05], np.float32)
+    return T
+
+
+def make_indoor_pairs(n_pairs, n_points):
+    """(source, target) pairs of the indoor scene: x windows [0, 16] and
+    [4.5, 20] (~70% overlap), sampled independently; pair i's source moved
+    by ``indoor_true_pose(i)``."""
+    pairs = []
+    for i in range(n_pairs):
+        tgt_pts, tgt_nrm = synth_indoor_cloud(n_points, 3 * i + 1, crop=(0.0, 16.0))
+        src_pts, src_nrm = synth_indoor_cloud(n_points, 3 * i + 2, crop=(4.5, 20.0))
+        T = indoor_true_pose(i)
+        src_pts = (src_pts @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+        src_nrm = (src_nrm @ T[:3, :3].T).astype(np.float32)
         pairs.append((src_pts, src_nrm, tgt_pts, tgt_nrm))
     return pairs
 
@@ -406,8 +536,10 @@ def main() -> int:
     rows_eth, launches_eth = eth_phase()
     rows_color, launches_color = color_phase()
     rows_proj, launches_proj = projective_phase()
-    record(rows_eth, launches_eth, {**rows_color, **rows_proj},
-           collections.Counter(launches_color) + collections.Counter(launches_proj))
+    rows_dense, launches_dense = dense_phase()
+    record(rows_eth, launches_eth, {**rows_color, **rows_proj, **rows_dense},
+           collections.Counter(launches_color) + collections.Counter(launches_proj)
+           + collections.Counter(launches_dense))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -524,7 +656,7 @@ def eth_phase(n_pairs: int = BATCH_PAIRS, n_points: int = N_POINTS):
     tile_real = targets.valid.to(torch.int64)
     tile_real = torch.nn.functional.pad(tile_real, (0, n_tiles * tile_t - cap))
     tile_real = tile_real.reshape(b, n_tiles, tile_t).sum(-1)          # (B, n_tiles)
-    need = kdtree._box_lb(q, fidx.bbox_min[..., :d], fidx.bbox_max[..., :d]) <= vd_p[..., None]
+    need = knn.box_lb(q, fidx.bbox_min[..., :d], fidx.bbox_max[..., :d]) <= vd_p[..., None]
     need_pts = int((need * tile_real[:, None, :]).sum())
     touched = need.any(1)                                              # (B, n_tiles)
     rows["visited_search"] = dict(
@@ -875,7 +1007,7 @@ def color_phase():
     n_tiles, tile_t = fidx.points_t3.shape[1], fidx.points_t3.shape[-1]
     tile_real = torch.nn.functional.pad(targets.valid.to(torch.int64), (0, n_tiles * tile_t - cap))
     tile_real = tile_real.reshape(b, n_tiles, tile_t).sum(-1)
-    lb = kdtree._box_lb(lq, fidx.bbox_min[..., :d], fidx.bbox_max[..., :d])
+    lb = knn.box_lb(lq, fidx.bbox_min[..., :d], fidx.bbox_max[..., :d])
     need = (lb <= knn.take_rows(vdf, order)[..., None]) & (lr >= 0)[..., None]
     del lb
     need_pts = int(torch.bmm(need.float(), tile_real[:, :, None].float()).double().sum())
@@ -895,7 +1027,34 @@ def color_phase():
           f"live on {b} x {len(sub)} rows: kernel {rows['visited_search']['all_live_ms']:.4f} ms, "
           f"plain {rows['visited_search']['all_live_plain_ms']:.4f} ms")
     del need, lq, order, vdf, vif, fail, lp_d, lp_i
+
+    # kd_radius_search at k = 0 (radius-complete membership) on frame 0, at
+    # the warm radii of the exact warm-up's final pose: the cache one warm
+    # matching stage leaves there.
+    cfg_x = cfgs["exact"].replace(multi_resolution=False)
+    feats = knn.color_features(targets.points, targets.colors)
+    gran = torch.arange(n, device=dev) // cfg_x.kd_warm_granule
+    empty = torch.full((b, int(gran[-1]) + 1), -1, dtype=torch.int32, device=dev)
+    _, _, _, cache = icp._match_kd_stage(cfg_x, q_ex, kx, fidx, qmask, empty, False, feats)
+    radius = kdtree.warm_radius(q_ex, cache[:, gran], feats, TUM_MAX_DISTANCE, qmask)[0]
+    r0 = torch.clamp(radius[:1], max=bv).contiguous()
+    box = (kx.block_min[:1], kx.block_max[:1], kx.pages[:1])
+    rd, ri = knn.kd_radius_search(q_ex[:1], r0, *box)
+    (rd_p, ri_p), rad_plain_ms = plain_pass(
+        lambda s, e: knn.kd_radius_search_plain(q_ex[:1, s:e], r0[:, s:e], *box), n, rows=256)
+    check(torch.equal(rd, rd_p) and torch.equal(ri, ri_p),
+          f"kd_radius_search D=6 k=0 (frame 0, all {n} rows at the warm radii): d2 and idx "
+          f"equal to plain; {int((ri >= 0).sum())} found, {int((r0 < 0).sum())} frozen")
+    rows["kd_radius_search_d6"] = dict(
+        err=float((rd - rd_p).abs().max()), shapes=f"1 x {n} rows (D = 6), k = 0, {kx.pages.shape[1]} blocks",
+        ms=time_ms(lambda: knn.kd_radius_search(q_ex[:1], r0, *box), 10),
+        plain_ms=rad_plain_ms, plain_on="the same rows, in windows of 256")
+    del rd, ri, rd_p, ri_p, cache, radius
     for name, r in rows.items():
+        if "bound" not in r:
+            print(f"  {name}: kernel {r['ms']:.4f} ms at {r['shapes']}; plain {r['plain_ms']:.4f} "
+                  f"ms; max_abs_err {r['err']}", flush=True)
+            continue
         print(f"  {name} (D=6): kernel {r['ms']:.4f} ms at {r['shapes']}; plain "
               f"{r['plain_ms']:.4f} ms on {r['plain_on']}; bound {r['bound'][0]:.5f} ms "
               f"({r['bound'][1]}); max_abs_err {r['err']}", flush=True)
@@ -936,6 +1095,22 @@ def color_phase():
     for name in ("box_topk", "kd_block_search"):
         check(counts["checks16"].get(name, 0) >= n_iter - n_seeded,
               f"colour checks16: {name} launched >= {n_iter - n_seeded} times (unseeded levels)")
+    # The exact arm runs warm (the JAX package's rule); one cold run on the
+    # same frames must give the same answer.
+    t0 = time.perf_counter()
+    cold = icp.run_icp_batch_multires_segmented(
+        cfgs["exact"].replace(kd_warm_start=False), sources, targets, seed=2,
+        num_source_points=TUM_W * TUM_H, kd_indexes=kx, device=dev)
+    sync()
+    arms["exact"]["cold_seconds"] = time.perf_counter() - t0
+    warm_x = results["exact"]
+    print(f"  colour exact cold run: {arms['exact']['cold_seconds']:.4f} s; largest pose gap "
+          f"to the warm run {float((warm_x.pose - cold.pose).abs().max()):.3e}", flush=True)
+    check(icp._warm_applies(cfgs["exact"])
+          and torch.equal(warm_x.trace.num_matches, cold.trace.num_matches),
+          f"colour exact: warm == cold, match counts equal in all {n_iter} iterations of every frame")
+    check(torch.allclose(warm_x.pose, cold.pose, rtol=1e-4, atol=1e-5),
+          "colour exact: warm and cold final poses within rtol 1e-4, atol 1e-5")
 
     # ---- each arm's matcher at frame 0's final pose against cKDTree ---------
     tfeat = knn.color_features(tgt_host.points, tgt_host.colors).numpy().astype(np.float64)
@@ -1055,7 +1230,8 @@ def color_errors(poses):
 def fixed_point_step(cfg, fine, targets, fidx, kd, result):
     """One more stride-1 iteration of ``result``'s run at its final pose, as
     the driver's last level runs it: the arm's matcher on the card (seeded
-    from ``result.match_blocks`` on the approximate arm), target rows,
+    from ``result.match_blocks`` on the approximate arm; the cold exact
+    search, equal to the warm one, on the exact arm), target rows,
     normal-angle rejection and the configuration's constant weights; the
     point-to-plane increment solved in f32 and in f64 on the same matches.
     Returns the largest translation of the f64 increment over the frames
@@ -1073,7 +1249,7 @@ def fixed_point_step(cfg, fine, targets, fidx, kd, result):
     pts = torch.where(mask[..., None], pts, knn.take_rows(pts, first[:, None]))
     idx, _, valid, _ = icp._match_kd_stage(
         cfg.replace(multi_resolution=False), knn.color_features(pts, fine.colors), kd, fidx,
-        mask, cache, cache is not None)
+        mask, cache, cache is not None, None)
     tgt = knn.take_rows(icp._fuse_cloud_table(targets), idx.clamp(0, targets.capacity - 1))
     valid = valid & (tgt[..., 6] > 0.5)
     if cfg.rejection:
@@ -1435,14 +1611,281 @@ def projective_fixed_point(cfg, sources, targets, pose):
     return steps, gap
 
 
+def dense_queries(sources, pose):
+    """Each pair's source points moved by ``pose``, masked rows pinned to the
+    first valid row (as ``run_icp_batch`` does)."""
+    import torch
+
+    from icp_variants_tpu_torch.core import se3
+    from icp_variants_tpu_torch.ops import knn
+
+    pts = se3.transform_points(sources.points, pose)
+    first = torch.argmax(sources.valid.to(torch.uint8), dim=-1)
+    return torch.where(sources.valid[..., None], pts, knn.take_rows(pts, first[:, None])).contiguous()
+
+
+def needed_work(kd, q, sel, d2):
+    """Bytes and f32 operations a search over each query's picked blocks
+    needs on these inputs: the blocks whose box lower bound is <= the
+    query's result distance (its NN distance, or its radius where nothing
+    was found), 3D operations per real point of them, and each needed
+    (pair, block)'s real points once, besides the query, radius, pick and
+    output bytes."""
+    import torch
+
+    b, n, d = q.shape
+    k = sel.shape[-1]
+    blk = sel.clamp(min=0).long()
+    bi = torch.arange(b, device=q.device)[:, None, None].expand_as(blk)
+    gap = torch.clamp_min(torch.maximum(kd.block_min[bi, blk] - q[:, :, None],
+                                        q[:, :, None] - kd.block_max[bi, blk]), 0.0)
+    need = (sel >= 0) & ((gap * gap).sum(-1) <= d2[..., None])
+    block_real = (kd.block_orig >= 0).sum(-1)                       # (B, nc)
+    need_pts = int(block_real[bi[need], blk[need]].sum())
+    used = torch.zeros(block_real.shape, dtype=torch.bool, device=q.device)
+    used[bi[need], blk[need]] = True
+    nbytes = b * n * (d + 1 + k + 2) * 4 + int(block_real[used].sum()) * d * 4
+    return nbytes, need_pts * 3 * d, need_pts, int(used.sum())
+
+
+def dense_phase():
+    """Phase 6 on the card: dense exact registration of 1,000,000-point
+    scans with caller-built kd indexes past the resident rule, and the
+    600,000-point packed-size pair. Returns the kernel rows and the launches
+    of the main-path run. Raises :class:`Failure` on a failed check."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    from icp_variants_tpu_torch.core import cloud as cloud_lib
+    from icp_variants_tpu_torch.ops import _cuda, kdtree, knn
+    from icp_variants_tpu_torch.pipeline import icp
+    from icp_variants_tpu_torch.pipeline.config import ICPConfig, Metric, Minimizer, Selection
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    torch.cuda.empty_cache()
+    print(f"phase 6: dense exact path past the resident rule, {DENSE_PAIRS} pairs x "
+          f"{DENSE_POINTS} points x {N_ITERATIONS} iterations", flush=True)
+    t0 = time.perf_counter()
+    pairs = make_indoor_pairs(DENSE_PAIRS, DENSE_POINTS)
+    sources = icp.stack_clouds([
+        cloud_lib.from_numpy(sp, normals=sn, morton_order=True, device=dev)
+        for sp, sn, _, _ in pairs])
+    targets_host = [cloud_lib.from_numpy(tp, normals=tn, morton_order=True, device="cpu")
+                    for _, _, tp, tn in pairs]
+    targets = icp.stack_clouds(targets_host).to(dev)
+    sync()
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kd = kdtree.stack_kd_indexes([
+        kdtree.build_kd_index(t.points, t.valid, device=dev) for t in targets_host])
+    sync()
+    kd_s = time.perf_counter() - t0
+    b, cap = sources.valid.shape
+    nc, cap_pad = kd.pages.shape[1], kd.pages.shape[-1]
+    print(f"  host data: {b} pairs x {cap} rows, {data_s:.1f} s; host kd build (not in the "
+          f"metric): {kd_s:.2f} s for {nc} blocks of cap_pad {cap_pad}", flush=True)
+    cfg = ICPConfig(metric=Metric.SYMMETRIC, minimizer=Minimizer.LINEAR,
+                    selection=Selection.ALL, n_iterations=N_ITERATIONS,
+                    max_distance=MAX_DISTANCE, matching_checks=0, kd_warm_start=True)
+    check(icp._warm_applies(cfg) and icp.build_kd_for(cfg, targets_host[0], device=dev) is None,
+          "the warm rule applies, and build_kd_for gives no kd index past the resident rule")
+    check(kdtree._resident_layout(kd) == (False, False),
+          f"the {nc} x {cap_pad} kd table lies past the resident rule, unpacked and packed")
+
+    def run(c):
+        return icp.run_icp_batch(c, sources, targets, kd_indexes=kd, device=dev)
+
+    t0 = time.perf_counter()
+    run(cfg)
+    sync()
+    warmup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cold = run(cfg.replace(kd_warm_start=False))
+    sync()
+    cold_s = time.perf_counter() - t0
+    print(f"  warm-up run {warmup_s:.2f} s; cold run (kd_warm_start=False) {cold_s:.4f} s",
+          flush=True)
+    walls, issues, counts, results = timed_runs({"warm": lambda seed: run(cfg)})
+    res, launches = results["warm"], counts["warm"]
+    dt, issued = float(np.median(walls["warm"])), float(np.median(issues["warm"]))
+    poses = res.pose.cpu().numpy().astype(np.float64)
+    nm = res.trace.num_matches.cpu().numpy()
+    check(poses.shape == (b, 4, 4) and np.isfinite(poses).all(), f"dense: {b} finite 4x4 poses")
+    t_errs, r_errs = [], []
+    for i in range(b):
+        resid = poses[i] @ indoor_true_pose(i).astype(np.float64)
+        t_errs.append(float(np.abs(resid[:3, 3]).max()))
+        r_errs.append(rotation_error_deg(resid[:3, :3]))
+    gap = float((res.pose - cold.pose).abs().max())
+    arm = dict(pairs_per_s=b / dt, seconds=dt, seconds_each=walls["warm"], host_issue_s=issued,
+               cold_seconds=cold_s, host_data_s=data_s, host_kd_build_s=kd_s,
+               t_err_m=float(np.mean(t_errs)), t_err_each_m=t_errs,
+               r_err_deg=float(np.mean(r_errs)), mean_matches_per_iter=float(nm.mean()),
+               warm_cold_pose_gap=gap, launches=launches)
+    print(f"  dense warm: {b / dt:.4f} pairs/s (median of {N_TIMED_RUNS} runs: {dt:.4f} s per "
+          f"batch, host issue {issued:.4f} s; runs {[round(w, 4) for w in walls['warm']]}); cold "
+          f"{cold_s:.4f} s; mean t_err {np.mean(t_errs) * 1e3:.4f} mm (per pair "
+          f"{[round(x * 1e3, 4) for x in t_errs]}), mean r_err {np.mean(r_errs):.6f} deg, "
+          f"matches/iter {nm.mean():.1f}, warm-cold pose gap {gap:.3e}, launches {launches}",
+          flush=True)
+    check(torch.equal(res.trace.num_matches, cold.trace.num_matches),
+          f"dense: warm == cold, match counts equal in all {N_ITERATIONS} iterations of every pair")
+    check(torch.allclose(res.pose, cold.pose, rtol=1e-4, atol=1e-5),
+          "dense: warm and cold final poses within rtol 1e-4, atol 1e-5")
+    for name in ("box_topk", "kd_radius_search", "visited_search"):
+        check(launches.get(name, 0) >= N_ITERATIONS,
+              f"dense warm: {name} launched >= {N_ITERATIONS} times in the timed run")
+    check(launches.get("kd_block_search", 0) == 0,
+          "dense warm: kd_block_search not launched (the route past the rule)")
+
+    # ---- kd_radius_search against its plain version, every row -------------
+    bv = knn.bound_value(MAX_DISTANCE)
+    mask = sources.valid
+    feats = targets.points
+    fidx = knn.build_target_index(feats, tile_t=knn.V2_TILE_T)
+    q0 = dense_queries(sources, torch.eye(4, device=dev).expand(b, 4, 4))
+    qf = dense_queries(sources, res.pose)
+    gran = torch.arange(cap, device=dev) // cfg.kd_warm_granule
+    empty = torch.full((b, int(gran[-1]) + 1), -1, dtype=torch.int32, device=dev)
+    _, _, _, cache = icp._match_kd_stage(cfg, qf, kd, fidx, mask, empty, False, feats)
+    cached_r = kdtree.warm_radius(qf, cache[:, gran], feats, MAX_DISTANCE, mask)[0]
+    boxes = (kd.block_min, kd.block_max, kd.pages)
+    row = dict(err=0.0)
+    for label, q, r in (("first iteration's radii (the bound)", q0, torch.where(mask, bv, -1.0)),
+                        ("final pose's cached radii", qf, cached_r)):
+        binit = torch.clamp(r, max=bv).contiguous()
+        sel = kdtree.box_topk(q, binit, kd.block_min, kd.block_max, 4)[0]
+        d2, idx = knn.kd_radius_search(q, binit, *boxes, sel)
+        (d2_p, idx_p), plain_ms = plain_pass(
+            lambda s, e: knn.kd_radius_search_plain(q[:, s:e], binit[:, s:e], *boxes,
+                                                    sel[:, s:e]), cap)
+        check(torch.equal(d2, d2_p) and torch.equal(idx, idx_p),
+              f"kd_radius_search k=4 at the {label} (all {b} x {cap} rows): d2 and idx equal to "
+              f"plain; {int((idx >= 0).sum())} found")
+        row["err"] = max(row["err"], float((d2 - d2_p).abs().max()))
+        nbytes, nops, need_pts, distinct = needed_work(kd, q, sel, d2)
+        ms = time_ms(lambda: knn.kd_radius_search(q, binit, *boxes, sel), 10)
+        print(f"  kd_radius_search k=4 at the {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms; {need_pts} real points needed, {distinct} distinct (pair, block)", flush=True)
+        if label.startswith("final"):
+            row.update(ms=ms, plain_ms=plain_ms, bound=bound(nbytes, nops),
+                       shapes=f"{b} x {cap} rows (D = 3), k = 4, {nc} blocks of {cap_pad} slots, "
+                              "the final pose's cached radii",
+                       plain_on=f"the same rows, in windows of {PLAIN_CHUNK_ROWS}")
+        else:
+            row.update(first_iteration_ms=ms, first_iteration_plain_ms=plain_ms,
+                       first_iteration_bound_ms=bound(nbytes, nops)[0])
+        del d2, idx, d2_p, idx_p, sel
+        torch.cuda.empty_cache()
+    b0 = torch.clamp(cached_r[:1], max=bv).contiguous()
+    box0 = (kd.block_min[:1], kd.block_max[:1], kd.pages[:1])
+    d2, idx = knn.kd_radius_search(qf[:1], b0, *box0)
+    # Smaller windows: a cache-less granule's rows search every block within
+    # the bound, so a window's widest row may hold a hundred blocks.
+    (d2_p, idx_p), plain0_ms = plain_pass(
+        lambda s, e: knn.kd_radius_search_plain(qf[:1, s:e], b0[:, s:e], *box0), cap, rows=512)
+    check(torch.equal(d2, d2_p) and torch.equal(idx, idx_p),
+          f"kd_radius_search k=0 on pair 0 (all {cap} rows, cached radii): d2 and idx equal to "
+          f"plain; {int((idx >= 0).sum())} found")
+    row["k0_pair0"] = dict(ms=time_ms(lambda: knn.kd_radius_search(qf[:1], b0, *box0), 10),
+                           plain_ms=plain0_ms)
+    print(f"  kd_radius_search k=0 on pair 0: kernel {row['k0_pair0']['ms']:.4f} ms, plain "
+          f"{plain0_ms:.4f} ms; bound {row['bound'][0]:.5f} ms ({row['bound'][1]}) at k=4",
+          flush=True)
+    del d2, idx, d2_p, idx_p
+
+    # ---- pair 0's warm matcher at its final pose against cKDTree ----------
+    kd0 = kdtree.KDIndex(*(None if f is None else f[:1] for f in kd))
+    fidx0 = knn.TargetIndex(*(f[:1] for f in fidx))
+    mi, md, mv = kdtree.match_kd_warm(qf[:1], kd0, MAX_DISTANCE, cache[:1, gran], feats[:1],
+                                      mask[:1], fallback_index=fidx0)
+    mi, md, mv = (x[0].cpu().numpy() for x in (mi, md, mv))
+    t_np = targets_host[0].points.numpy()
+    rows_ok = np.flatnonzero(targets_host[0].valid.numpy())
+    dref, iref = cKDTree(t_np[rows_ok]).query(qf[0].cpu().numpy(), k=1, workers=8)
+    iref, d2ref = rows_ok[iref], dref * dref
+    real = mask[0].cpu().numpy()                   # padding rows search nothing
+    within = (d2ref <= MAX_DISTANCE) & real
+    clear = np.abs(d2ref - MAX_DISTANCE) > 1e-4
+    same = (mi == iref) | np.isclose(md, d2ref, rtol=1e-6, atol=0)
+    print(f"  pair 0's warm matcher at its final pose: {int(mv.sum())} of {int(real.sum())} rows "
+          f"matched, {int((same & mv).sum())} equal to cKDTree, {int(within.sum())} within the "
+          "threshold by cKDTree", flush=True)
+    check(bool(np.all((mv == within)[clear])) and bool(np.all(same[mv & within]))
+          and np.allclose(md[mv], d2ref[mv], rtol=1e-5, atol=1e-6),
+          f"dense: every match of pair 0's {int(real.sum())} rows at its final pose == cKDTree "
+          "within the threshold")
+
+    prof = profile_run(lambda: run(cfg), dt, top=10)
+    arm.update(prof)
+    print(f"  dense warm profile: device {prof['device_ms']} ms, busy share "
+          f"{prof.get('device_busy_share')}, {prof.get('kernel_launches')} launches")
+    for name, t in prof.get("device_ms_by_kernel", {}).items():
+        print(f"    device {t:9.3f} ms  {name}")
+    del sources, targets, kd, fidx, cache, cached_r, q0, qf, res, cold, kd0, fidx0
+    torch.cuda.empty_cache()
+
+    # ---- the packed-size pair: within the rule through kd_block_search ------
+    sp, sn, tp, tn = make_indoor_pairs(1, DENSE_PACKED_POINTS)[0]
+    src = icp.stack_clouds([cloud_lib.from_numpy(sp, normals=sn, morton_order=True, device=dev)])
+    tgt_h = cloud_lib.from_numpy(tp, normals=tn, morton_order=True, device="cpu")
+    kdp = kdtree.stack_kd_indexes([kdtree.build_kd_index(tgt_h.points, tgt_h.valid, device=dev)])
+    tgt = icp.stack_clouds([tgt_h]).to(dev)
+    ncp, cpp = kdp.pages.shape[1], kdp.pages.shape[-1]
+    check(kdtree._resident_layout(kdp) == (True, True),
+          f"the {DENSE_PACKED_POINTS}-point table ({ncp} x {cpp}) takes the JAX package's packed "
+          "layout")
+    fidx_p = knn.build_target_index(tgt.points, tile_t=knn.V2_TILE_T)
+    cap_p = src.capacity
+    gran = torch.arange(cap_p, device=dev) // cfg.kd_warm_granule
+    cache = torch.full((1, int(gran[-1]) + 1), -1, dtype=torch.int32, device=dev)
+    qp = dense_queries(src, torch.eye(4, device=dev)[None])
+    _cuda.reset_launches()
+    for _ in range(2):
+        pidx, _, pvalid = kdtree.match_kd_warm(qp, kdp, MAX_DISTANCE, cache[:, gran], tgt.points,
+                                               src.valid, fallback_index=fidx_p)
+        radius = kdtree.warm_radius(qp, cache[:, gran], tgt.points, MAX_DISTANCE, src.valid)[0]
+        cache = icp._granule_update(cache, pidx, pvalid, cfg.kd_warm_granule)
+    sync()
+    check(_cuda.LAUNCHES["kd_block_search"] == 2 and _cuda.LAUNCHES["kd_radius_search"] == 0,
+          f"packed-size pair: two match_kd_warm calls, {int(pvalid.sum())} of {cap_p} rows "
+          "matched, through kd_block_search (not kd_radius_search)")
+    binit = torch.clamp(radius, max=bv).contiguous()
+    sel = kdtree.box_topk(qp, binit, kdp.block_min, kdp.block_max, 4)[0]
+    d2, idx = kdtree.kd_block_search(qp, sel, binit, kdp.pages)
+    (d2_p, idx_p), plain_ms = plain_pass(
+        lambda s, e: kdtree.kd_block_search_plain(qp[:, s:e], sel[:, s:e], binit[:, s:e],
+                                                  kdp.pages), cap_p)
+    check(torch.equal(d2, d2_p), f"kd_block_search on the packed-size pair (all {cap_p} rows at "
+          "the second call's warm radii): d2 equal to plain")
+    _tie_or_equal(idx, idx_p, d2, qp, kdp.pages, "kd_block_search on the packed-size pair")
+    nbytes, nops, need_pts, _ = needed_work(kdp, qp, sel, d2)
+    packed = dict(err=float((d2 - d2_p).abs().max()),
+                  ms=time_ms(lambda: kdtree.kd_block_search(qp, sel, binit, kdp.pages), 10),
+                  plain_ms=plain_ms, bound=bound(nbytes, nops),
+                  shapes=f"1 x {cap_p} rows (D = 3), k = 4, {ncp} blocks of {cpp} slots, warm radii")
+    print(f"  kd_block_search on the packed-size pair: kernel {packed['ms']:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {packed['bound'][0]:.5f} ms ({packed['bound'][1]})",
+          flush=True)
+    print("  dense path: " + json.dumps(arm))
+    check(arm["t_err_m"] <= DENSE_T_ERR_LIMIT_M,
+          f"dense: mean t_err <= {DENSE_T_ERR_LIMIT_M * 1e3:g} mm")
+    check(arm["r_err_deg"] <= DENSE_R_ERR_LIMIT_DEG,
+          f"dense: mean r_err <= {DENSE_R_ERR_LIMIT_DEG:g} deg")
+    return {"kd_radius_search": row, "kd_block_search_packed": packed}, dict(launches)
+
+
 def record(rows_eth, launches_eth, rows, launches) -> None:
-    """Phase 6: the kernels line. Each kd kernel's time, bound and plain
+    """Phase 7: the kernels line. Each kd kernel's time, bound and plain
     time are at the colour path's full shapes (D = 6; the plain version in
     windows of rows, visited_search's on the live rows only), its ETH
     numbers (D = 3, full shapes) under ``eth``; the projective window
-    search's at the projective path's; launches are summed over every
-    path's main runs."""
-    print("phase 6: the record", flush=True)
+    search's at the projective path's; kd_radius_search's at the dense
+    path's (D = 3), its colour reading (D = 6, k = 0) under ``colour``, and
+    kd_block_search's on the packed-size pair under ``packed``; launches
+    are summed over every path's main runs."""
+    print("phase 7: the record", flush=True)
     sources_of = {
         "box_topk": ("icp_variants_tpu_torch/csrc/box_topk.cu",
                      "icp_variants_tpu/ops/kdtree.py:501"),
@@ -1455,6 +1898,8 @@ def record(rows_eth, launches_eth, rows, launches) -> None:
         "projective_window_search": (
             "icp_variants_tpu_torch/csrc/projective_window_search.cu",
             "icp_variants_tpu/ops/knn.py:1321"),
+        "kd_radius_search": ("icp_variants_tpu_torch/csrc/kd_radius_search.cu",
+                             "icp_variants_tpu/ops/knn.py:891"),
     }
     kernels = []
     for name, (src, replaces) in sources_of.items():
@@ -1470,6 +1915,19 @@ def record(rows_eth, launches_eth, rows, launches) -> None:
             entry["also_replaces"] = "icp_variants_tpu/ops/knn.py:1321 (restrict_col mode)"
         if name == "projective_window_search":
             entry["mode"] = "pixel_window"
+        if name == "kd_radius_search":
+            entry["max_abs_err"] = max(c["err"], rows["kd_radius_search_d6"]["err"])
+            entry["colour"] = {key: rows["kd_radius_search_d6"][key]
+                               for key in ("ms", "plain_ms", "shapes")}
+            entry["first_iteration"] = dict(ms=c["first_iteration_ms"],
+                                            plain_ms=c["first_iteration_plain_ms"],
+                                            bound_ms=c["first_iteration_bound_ms"])
+            entry["k0_pair0"] = c["k0_pair0"]
+        if name == "kd_block_search":
+            p = rows["kd_block_search_packed"]
+            entry["packed"] = dict(ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound"][0],
+                                   bound_by=p["bound"][1], max_abs_err=p["err"],
+                                   shapes=p["shapes"])
         if e is not None:
             entry["eth"] = dict(ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound"][0],
                                 bound_by=e["bound"][1], max_abs_err=e["err"],

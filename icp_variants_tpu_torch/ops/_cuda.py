@@ -44,7 +44,7 @@ NVCC_FLAGS = [
 KERNEL_DIMS = (3, 6)
 
 # kernel name -> (source file, C function, ctypes argtypes); every C
-# function ends with (..., void* stream), and the four kd kernels' with
+# function ends with (..., void* stream), and the five kd kernels' with
 # (..., int D, void* stream). projective_window_search takes geometry only.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
@@ -56,6 +56,8 @@ KERNELS = {
     "cached_block_search": (
         "cached_block_search.cu", "cached_block_search_launch",
         [_P, _P, _F] + [_P] * 3 + [_I] * 5 + [_P]),
+    "kd_radius_search": (
+        "kd_radius_search.cu", "kd_radius_search_launch", [_P] * 8 + [_I] * 6 + [_P]),
     "projective_window_search": (
         "projective_window_search.cu", "projective_window_search_launch",
         [_P] * 6 + [_I] * 6 + [_P]),

@@ -20,6 +20,12 @@ PyTorch port of ``icp_variants_tpu.ops.kdtree`` on the ETH main path:
   batch-global ``lax.cond``; here it launches every iteration, and rows
   whose certificate closed are frozen (radius -1) and exit at once — no
   host sync decides anything.
+* Warm start (:func:`match_kd_warm`): each query searches within the exact
+  distance to its previous match. Within the JAX package's resident rule
+  that is box_topk + kd_block_search from the per-query radius; past it
+  (and for radius-complete membership, k = 0) the radius search
+  ``knn.kd_radius_search`` (kernel ``csrc/kd_radius_search.cu``), as the
+  JAX package picks its bitmap kernel there (:func:`_resident_layout`).
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain PyTorch version (``*_plain``, same module) for CPU tensors only.
@@ -63,8 +69,10 @@ class KDIndex(NamedTuple):
     block_max: torch.Tensor    # (..., C, D) box maxs (-inf for empty blocks)
     pages: torch.Tensor        # (..., C, 8, cap_pad) feature-major pages
     page_orig: torch.Tensor    # (..., C*cap_pad) int32 original rows, -1 padding
-    # Two blocks per 8-row page (d <= 3), carried for parity with the JAX
-    # index; nothing in the port reads it.
+    # Two blocks per 8-row page (d <= 3), the JAX index's packed table. Its
+    # presence decides _resident_layout's packed fit (the JAX package's
+    # rule); no kernel reads it: kd_block_search serves tables of that size
+    # from the one-block pages.
     pages_packed: torch.Tensor | None = None
 
 
@@ -188,21 +196,25 @@ def stack_kd_indexes(indexes) -> KDIndex:
     ))
 
 
+def _resident_layout(index: KDIndex) -> tuple[bool, bool]:
+    """The JAX package's resident rule for this index: ``(packed, fits)``.
+    The one-block-per-page table fits when :func:`knn.resident_fits` says
+    so; else a 3-dim index with its packed table fits in the packed layout.
+    Read at call time (``knn.RESIDENT_VMEM_BUDGET``). The JAX package runs
+    its resident kernel when ``fits`` and its bitmap kernel past the rule;
+    the warm search takes the matching route (:func:`_warm_search`)."""
+    nc, tile_t = index.pages.shape[-3], index.pages.shape[-1]
+    if knn.resident_fits(nc, tile_t):
+        return False, True
+    if index.pages_packed is not None and knn.resident_fits(
+            nc, tile_t, d=index.block_min.shape[-1]):
+        return True, True
+    return False, False
+
+
 # ---------------------------------------------------------------------------
 # Kernel 1: box top-k
 # ---------------------------------------------------------------------------
-
-
-def _box_lb(q: torch.Tensor, bmin: torch.Tensor, bmax: torch.Tensor) -> torch.Tensor:
-    """Squared distance lower bound from each query to each box:
-    (B, N, D) x (B, M, D) -> (B, N, M), coordinate at a time."""
-    lb = None
-    for j in range(q.shape[-1]):
-        qj = q[:, :, None, j]
-        gap = torch.clamp_min(
-            torch.maximum(bmin[:, None, :, j] - qj, qj - bmax[:, None, :, j]), 0.0)
-        lb = gap * gap if lb is None else lb + gap * gap
-    return lb
 
 
 def _extract_min(w: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -219,7 +231,7 @@ def _extract_min(w: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 def box_topk_plain(q, binit, bmin, bmax, k: int):
     """Plain version of :func:`box_topk`."""
-    lb = _box_lb(q, bmin, bmax)
+    lb = knn.box_lb(q, bmin, bmax)
     sel, resid = _extract_min(lb, k)
     member = torch.gather(lb, -1, sel.long()) <= binit[..., None]
     return torch.where(member, sel, -1), resid
@@ -420,6 +432,201 @@ def match_kd(
             q[..., :d], fallback_index, max_distance, per_query_bound=radii)
         idx = torch.where(fail, idxf, idx)
         d2 = torch.where(fail, d2f, d2)
+    valid = (d2 <= max_distance) & (idx >= 0)
+    if query_mask is not None:
+        valid = valid & query_mask
+    return (idx, d2, valid) if batched else (idx[0], d2[0], valid[0])
+
+
+# ---------------------------------------------------------------------------
+# Warm start: per-query radii from the previous iteration's matches
+# ---------------------------------------------------------------------------
+
+
+def _warm_search(q, index, max_distance, radius, k):
+    """Core of the JAX package's ``_kd_bitmap_search``: per-query top-k
+    membership (k = 0: every block within the radius) intersected with the
+    radius ``binit = min(radius, bound_value)``; a negative radius freezes
+    the row. Returns ``(sidx, d2, resid)``: the pair-local page index (-1
+    where nothing beat ``binit``, d2 then ``binit``) and the certificate
+    residual (the (k+1)-th smallest bound; +inf when k = 0).
+
+    Within the resident rule (:func:`_resident_layout`) and k > 0 the
+    search is box_topk + kd_block_search from ``binit``; past it, and for
+    k = 0 at any size (box_topk takes at most ICP_MAX_K picks), box_topk
+    (k > 0) + ``knn.kd_radius_search``: the JAX package's bitmap route."""
+    d = index.block_min.shape[-1]
+    q = q[..., :d].float().contiguous()
+    binit = torch.clamp(radius.float(), max=knn.bound_value(max_distance)).contiguous()
+    if k > 0:
+        sel, resid = box_topk(q, binit, index.block_min, index.block_max, k)
+    else:
+        sel, resid = None, torch.full_like(binit, torch.inf)
+    if k > 0 and _resident_layout(index)[1]:
+        d2, sidx = kd_block_search(q, sel, binit, index.pages)
+    else:
+        d2, sidx = knn.kd_radius_search(
+            q, binit, index.block_min, index.block_max, index.pages, sel)
+    return sidx, d2, resid
+
+
+def nn_search_kd_radius(
+    queries: torch.Tensor, index: KDIndex, max_distance: float, radius: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact 1-NN within per-query radii, radius-complete membership (a
+    block is searched iff its box lower bound is within the query's
+    radius): ``(orig_idx, d2)``. ``radius`` must upper-bound the query's
+    squared NN distance (e.g. the distance to a real target point); a
+    negative radius freezes the row. Rows where nothing beats
+    ``min(radius, bound_value)`` return idx -1 and d2 = that bound."""
+    batched, (q, index, radius) = knn._batch_args(queries, index, radius)
+    sidx, d2, _ = _warm_search(q, index, max_distance, radius, 0)
+    idx = to_orig(index, sidx)
+    return (idx, d2) if batched else (idx[0], d2[0])
+
+
+def nn_search_kd_warm(
+    queries: torch.Tensor,
+    index: KDIndex,
+    max_distance: float,
+    radius: torch.Tensor,
+    *,
+    k: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact-unless-flagged 1-NN: per-query top-k membership intersected
+    with the warm radii; ``(orig_idx, dist2, fail)``, ``fail`` where the
+    certificate does not close (the caller's fallback re-searches those).
+    A top-k block dropped by the radius has lb > radius >= the found
+    distance, so it cannot improve the result."""
+    batched, (q, index, radius) = knn._batch_args(queries, index, radius)
+    nc = index.pages.shape[-3]
+    k = min(K_DEFAULT if k is None else k, nc)
+    sidx, d2, resid = _warm_search(q, index, max_distance, radius, k)
+    fail = _certificate_fail(resid, d2, max_distance)
+    idx = to_orig(index, sidx)
+    return (idx, d2, fail) if batched else (idx[0], d2[0], fail[0])
+
+
+def warm_radius(queries, cache_idx, target_feats, max_distance, query_mask=None):
+    """Per-query warm radii from cached matches: ``(radius, cached_d2,
+    has_cache)``. ``cached_d2`` is the squared distance to the cached
+    original target row (-1 = none), summed in the JAX package's order of
+    f32 operations; the radius adds one rounding step of slack,
+    ``cached_d2 * (1 + 1e-6) + 1e-30``, so the search re-finds the cached
+    point, and is capped at :func:`knn.bound_value`. Cache-less rows take
+    the bound, masked-out rows -1 (frozen). Every tensor has the pair axis."""
+    d = target_feats.shape[-1]
+    bound_val = knn.bound_value(max_distance)
+    has_cache = cache_idx >= 0
+    cached = knn.take_rows(target_feats, cache_idx.clamp(0, target_feats.shape[-2] - 1))
+    diff = queries[..., :d] - cached[..., :d]
+    cached_d2 = None
+    for j in range(d):
+        term = diff[..., j] * diff[..., j]
+        cached_d2 = term if cached_d2 is None else cached_d2 + term
+    radius = torch.where(has_cache, cached_d2 * _f32(1.0 + 1e-6) + _f32(1e-30), bound_val)
+    radius = torch.clamp(radius, max=bound_val)
+    if query_mask is not None:
+        radius = torch.where(query_mask, radius, -1.0)
+    return radius, cached_d2, has_cache
+
+
+def nn_search_xla_flat(queries: torch.Tensor, index: KDIndex, *, chunk: int = 1024):
+    """Portable exact 1-NN over a KDIndex's block table (direct differences
+    against every block point, the first minimum in block-table order):
+    ``(orig_idx, d2)``, the JAX package's CPU oracle of the warm path.
+    Queries go ``chunk`` rows at a time; the results do not depend on it."""
+    batched, (q, index) = knn._batch_args(queries, index)
+    b, nc, dcap = index.block_pts.shape
+    d = index.block_min.shape[-1]
+    pts = index.block_pts.reshape(b, 1, nc, d, dcap // d)
+    best, d2min = [], []
+    for s in range(0, q.shape[1], chunk):
+        qc = q[:, s:s + chunk]
+        d2 = None
+        for j in range(d):
+            diff = pts[..., j, :] - qc[:, :, None, j, None]
+            d2 = diff * diff if d2 is None else d2 + diff * diff
+        m, a = torch.min(d2.reshape(b, qc.shape[1], -1), dim=-1)
+        best.append(a)
+        d2min.append(m)
+    orig = knn.take_rows(index.block_orig.reshape(b, -1), torch.cat(best, dim=1))
+    d2 = torch.cat(d2min, dim=1)
+    return (orig, d2) if batched else (orig[0], d2[0])
+
+
+def match_kd_warm(
+    queries: torch.Tensor,
+    index: KDIndex,
+    max_distance: float,
+    cache_idx: torch.Tensor,
+    target_feats: torch.Tensor,
+    query_mask: torch.Tensor | None = None,
+    *,
+    fallback_index: knn.TargetIndex | None = None,
+    k: int | None = None,
+    checks: int = 0,
+    impl: str = "search",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Warm-start matching stage: ``(indices, dist2, valid)`` with the
+    squared threshold of NearestNeighbor.h:182, each query searching within
+    the exact distance to its cached match.
+
+    ``cache_idx`` (..., N) holds each query's last matched original target
+    row (-1 = none); ``target_feats`` (..., capacity, d) is the original
+    feature table distances are measured in (points, or 6-dim colour
+    features). Radii come from :func:`warm_radius`. On the exact arm
+    (``checks == 0``) with ``fallback_index`` (a ``knn.TargetIndex``) the
+    search is :func:`nn_search_kd_warm` and rows whose certificate fails
+    re-search through the visited-list search; with ``k == 0`` or no
+    fallback it is :func:`nn_search_kd_radius`. ``checks > 0`` is the
+    approximate arm: top ``checks_to_k(checks)`` blocks within the radii,
+    no certificate, no fallback. Rows whose search finds nothing strictly
+    better keep their cached match within the threshold (the tie and
+    round-off backstop).
+
+    ``impl="oracle"`` is the JAX package's portable CPU oracle instead (a
+    full exact search with radii ignored, or on the approximate arm the
+    cold top-k search deferring to the cached match); it takes CPU tensors
+    only."""
+    if impl not in ("search", "oracle"):
+        raise ValueError(f"match_kd_warm: impl must be 'search' or 'oracle', got {impl!r}")
+    batched, (q, index, cache_idx, target_feats, query_mask, fallback_index) = knn._batch_args(
+        queries, index, cache_idx, target_feats, query_mask, fallback_index)
+    if impl == "oracle" and q.device.type != "cpu":
+        raise ValueError("match_kd_warm: the oracle takes CPU tensors only")
+    if checks > 0:
+        k = checks_to_k(checks, index)
+    d = index.block_min.shape[-1]
+    bound_val = knn.bound_value(max_distance)
+    radius, cached_d2, has_cache = warm_radius(
+        q, cache_idx, target_feats, max_distance, query_mask)
+    if impl == "oracle" and checks > 0:
+        fidx, fd2, _ = nn_search_kd(q, index, max_distance, k=k)
+        not_better = has_cache & (fd2 >= cached_d2)
+        idx = torch.where(not_better, -1, fidx)
+        d2 = torch.where(not_better, bound_val, fd2)
+    elif impl == "oracle":
+        fidx, fd2 = nn_search_xla_flat(q[..., :d].float(), index)
+        over = fd2 > _f32(max_distance)
+        idx = torch.where(over, -1, fidx)
+        d2 = torch.where(over, bound_val, fd2)
+    elif checks > 0:
+        idx, d2, _ = nn_search_kd_warm(q, index, max_distance, radius, k=k)
+    elif k == 0 or fallback_index is None:
+        idx, d2 = nn_search_kd_radius(q, index, max_distance, radius)
+    else:
+        idx, d2, fail = nn_search_kd_warm(q, index, max_distance, radius, k=k)
+        fradii = torch.where(fail, bound_val, -1.0).to(torch.float32)
+        idxf, d2f = knn.nn_search_pruned_v2(
+            q[..., :d], fallback_index, max_distance, per_query_bound=fradii)
+        idx = torch.where(fail, idxf, idx)
+        d2 = torch.where(fail, d2f, d2)
+    keep = (idx < 0) & has_cache & (cached_d2 <= _f32(max_distance))
+    if query_mask is not None:
+        keep = keep & query_mask
+    idx = torch.where(keep, cache_idx.to(idx.dtype), idx)
+    d2 = torch.where(keep, cached_d2, d2)
     valid = (d2 <= max_distance) & (idx >= 0)
     if query_mask is not None:
         valid = valid & query_mask

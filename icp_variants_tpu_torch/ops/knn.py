@@ -4,9 +4,12 @@ PyTorch port of the parts of ``icp_variants_tpu.ops.knn`` that the kd
 matcher needs: the host-side Morton orders (3-dim and the 6-dim colour
 order), the tile-bbox :class:`TargetIndex`, the visited-list search that
 serves the exact arm's fallback, and the JAX package's resident-table rule
-(:func:`resident_fits`). :func:`visited_search` launches the hand-written CUDA
-kernel ``csrc/visited_search.cu`` on CUDA tensors and runs its plain
-PyTorch version, :func:`visited_search_plain`, on CPU tensors.
+(:func:`resident_fits`), and the per-query radius search over kd blocks
+that serves tables past that rule. :func:`visited_search` and
+:func:`kd_radius_search` launch the hand-written CUDA kernels
+``csrc/visited_search.cu`` and ``csrc/kd_radius_search.cu`` on CUDA tensors
+and run their plain PyTorch versions, :func:`visited_search_plain` and
+:func:`kd_radius_search_plain`, on CPU tensors.
 
 Distances are direct coordinate differences ``sum_j (t_j - q_j)^2``
 everywhere, never the ``|q|^2 + |t|^2 - 2 q.t`` expansion, which cancels
@@ -32,6 +35,9 @@ V2_TILE_T = 1024
 V2_TILE_Q = 128
 # Row fill of the tile-multiple padding of a target index.
 _ROW_PAD = 1.0e6
+# Largest kd block count per pair that kd_radius_search takes (its CUDA
+# kernel lists a gate's member union in shared memory).
+KD_RADIUS_MAX_BLOCKS = 1024
 
 
 def _pad_features(x: torch.Tensor) -> torch.Tensor:
@@ -120,8 +126,9 @@ def morton6_codes_np(points, colors, valid_mask=None):
 # which answer, a configuration gets: the kd path for dense selections
 # (pipeline/icp.py:_kd_selection_applies) and the approximate arm's block
 # membership cache (run_icp_batch). The port keeps it as that result rule,
-# so that every configuration gets the JAX package's answer; it chooses no
-# kernel here.
+# so that every configuration gets the JAX package's answer; beyond that
+# it picks the warm search's route as the JAX package picks its kernel
+# (kdtree._resident_layout), with results equal on both routes.
 RESIDENT_VMEM_BUDGET = 13 * 1024 * 1024
 
 
@@ -177,28 +184,49 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(table, 1, g).reshape(*idx.shape, *tail)
 
 
+def box_lb(q: torch.Tensor, bmin: torch.Tensor, bmax: torch.Tensor) -> torch.Tensor:
+    """Squared distance lower bound from each query to each box:
+    (B, N, D) x (B, M, D) -> (B, N, M), coordinate at a time."""
+    lb = None
+    for j in range(q.shape[-1]):
+        qj = q[:, :, None, j]
+        gap = torch.clamp_min(
+            torch.maximum(bmin[:, None, :, j] - qj, qj - bmax[:, None, :, j]), 0.0)
+        lb = gap * gap if lb is None else lb + gap * gap
+    return lb
+
+
 def visited_search_plain(
     queries: torch.Tensor, radius: torch.Tensor, index: TargetIndex, *, chunk: int = 8192
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`visited_search`: a chunked direct-difference
     exact 1-NN over every tiled target row, strictly below each query's
     radius (negative = frozen: idx -1, d2 = radius). Ties go to the lowest
-    tiled row."""
+    tiled row. Only the live rows of each pair are computed."""
     d = queries.shape[-1]
-    pts = index.points[..., :d]
     best = radius.clone()
-    idx = torch.full(radius.shape, -1, dtype=torch.int64, device=radius.device)
-    for c0 in range(0, pts.shape[-2], chunk):
-        t = pts[:, c0:c0 + chunk]
-        d2 = None
-        for j in range(d):
-            diff = t[:, None, :, j] - queries[:, :, None, j]
-            d2 = diff * diff if d2 is None else d2 + diff * diff
-        m, a = torch.min(d2, dim=-1)
-        better = m < best
-        best = torch.where(better, m, best)
-        idx = torch.where(better, a + c0, idx)
-    return best, idx.to(torch.int32)
+    idx = torch.full(radius.shape, -1, dtype=torch.int32, device=radius.device)
+    for b in range(queries.shape[0]):
+        rows = torch.nonzero(radius[b] >= 0).flatten()
+        if rows.numel() == 0:
+            continue
+        pts = index.points[b, :, :d]
+        q = queries[b, rows]
+        rb = radius[b, rows]
+        ib = torch.full(rb.shape, -1, dtype=torch.int64, device=radius.device)
+        for c0 in range(0, pts.shape[0], chunk):
+            t = pts[c0:c0 + chunk]
+            d2 = None
+            for j in range(d):
+                diff = t[None, :, j] - q[:, j, None]
+                d2 = diff * diff if d2 is None else d2 + diff * diff
+            m, a = torch.min(d2, dim=-1)
+            better = m < rb
+            rb = torch.where(better, m, rb)
+            ib = torch.where(better, a + c0, ib)
+        best[b, rows] = rb
+        idx[b, rows] = ib.to(torch.int32)
+    return best, idx
 
 
 def visited_search(
@@ -228,6 +256,80 @@ def visited_search(
         "visited_search", queries, radius, index.points_t3, index.bbox_min,
         index.bbox_max, d2, idx, b, n, n_tiles, tile_t, d,
     )
+    return d2, idx
+
+
+def kd_radius_search_plain(q, binit, bmin, bmax, pages, sel=None):
+    """Plain version of :func:`kd_radius_search`: each row's member blocks
+    in ascending id order (padded with -1), gathered, and the first
+    minimum of the flattened (block, slot) distances, which is the lowest
+    page index among ties."""
+    b, n, d = q.shape
+    nc, cap_pad = pages.shape[1], pages.shape[-1]
+    if sel is None:
+        member = box_lb(q, bmin, bmax) <= binit[..., None]
+        ids = torch.where(member, torch.arange(nc, device=q.device), nc)
+        m = max(int(member.sum(-1).max()), 1) if n else 1
+    else:
+        ids = torch.where(sel >= 0, sel.clamp(max=nc - 1), nc)
+        m = sel.shape[-1]
+    ids = torch.sort(ids, dim=-1).values[..., :m]
+    ids = torch.where(ids < nc, ids, -1).to(torch.int32)
+    bidx = torch.arange(b, device=q.device)[:, None, None]
+    cand = pages[bidx, ids.clamp(min=0).long(), :d]            # (B, N, m, D, cap_pad)
+    d2 = None
+    for j in range(d):
+        diff = cand[..., j, :] - q[:, :, None, j, None]
+        d2 = diff * diff if d2 is None else d2 + diff * diff
+    d2 = torch.where((ids >= 0)[..., None], d2, torch.inf)
+    best, a = torch.min(d2.reshape(b, n, m * cap_pad), dim=-1)
+    better = best < binit
+    blk = torch.gather(ids, -1, (a // cap_pad)[..., None])[..., 0]
+    idx = torch.where(better, blk * cap_pad + (a % cap_pad).to(torch.int32), -1)
+    return torch.where(better, best, binit), idx.to(torch.int32)
+
+
+def kd_radius_search(
+    q: torch.Tensor,
+    binit: torch.Tensor,
+    bmin: torch.Tensor,
+    bmax: torch.Tensor,
+    pages: torch.Tensor,
+    sel: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact 1-NN of each query strictly below its own radius among the
+    points of its member kd blocks, at any page-table size.
+
+    ``q`` (B, N, D), ``binit`` (B, N) radii (negative = frozen), ``bmin`` /
+    ``bmax`` (B, nc, D) block boxes, ``pages`` (B, nc, 8, cap_pad). The
+    members of a row are its picks in ``sel`` (B, N, k) int32 when given
+    (``box_topk``'s, -1 = none), else every block whose :func:`box_lb` is
+    <= the row's radius. Ties go to the lowest pair-local page index
+    ``block * cap_pad + slot``. Returns ``(d2, idx)``, (B, N) each; idx -1
+    where nothing beats the radius (or the row is frozen), and d2 is then
+    the radius. A CUDA tensor launches ``csrc/kd_radius_search.cu`` (D = 3
+    or 6, nc <= :data:`KD_RADIUS_MAX_BLOCKS`); a CPU tensor runs
+    :func:`kd_radius_search_plain`."""
+    if q.device.type == "cpu":
+        return kd_radius_search_plain(q, binit, bmin, bmax, pages, sel)
+    b, n = q.shape[0], q.shape[1]
+    d = _cuda.feature_dim("kd_radius_search", q.shape[-1])
+    nc, cap_pad = pages.shape[1], pages.shape[-1]
+    if nc > KD_RADIUS_MAX_BLOCKS:
+        raise ValueError(f"kd_radius_search: at most {KD_RADIUS_MAX_BLOCKS} blocks, got {nc}")
+    k = 0 if sel is None else sel.shape[-1]
+    chk = _cuda.check_cuda_tensor
+    chk("q", q, torch.float32, (b, n, d))
+    chk("binit", binit, torch.float32, (b, n))
+    chk("bmin", bmin, torch.float32, (b, nc, d))
+    chk("bmax", bmax, torch.float32, (b, nc, d))
+    chk("pages", pages, torch.float32, (b, nc, FEATURE_PAD, cap_pad))
+    if sel is not None:
+        chk("sel", sel, torch.int32, (b, n, k))
+    d2 = torch.empty((b, n), dtype=torch.float32, device=q.device)
+    idx = torch.empty((b, n), dtype=torch.int32, device=q.device)
+    _cuda.launch("kd_radius_search", q, binit, bmin, bmax, pages, sel, d2, idx,
+                 b, n, nc, cap_pad, k, d)
     return d2, idx
 
 

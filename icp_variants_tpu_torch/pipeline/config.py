@@ -157,10 +157,9 @@ class ICPConfig:
     # random re-selection a granule is re-seeded ~granule*p times per
     # iteration — per-ROW caches would almost always miss at p=0.01.
     kd_warm_granule: int = 128
-    # Query-tile width of the warm bitmap-kernel search (None = the
-    # module default, kdtree.TILE_Q_DEFAULT). Narrower tiles shrink each
-    # tile's block membership (less VPU work per query) at more DMA
-    # issues; part of the executable's shape, hence a config knob.
+    # Query-tile width of the JAX package's warm TPU search kernel. It
+    # shapes only that TPU kernel's tile; kept so configs mirror field for
+    # field, and no code of the port reads it.
     kd_warm_tile_q: int | None = None
 
     # LM inner loop (Ceres solver options, ICPOptimizer.h:352-360).

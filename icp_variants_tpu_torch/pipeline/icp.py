@@ -18,7 +18,9 @@ whole run and only the caller's read of the result waits for the device.
 Dense multi-resolution runs go through
 :func:`run_icp_batch_multires_segmented`: each pyramid level (or group of
 coarse levels) runs on the stride-sliced source, and the approximate arm's
-block-membership cache threads from a level into the next.
+block-membership cache threads from a level into the next. On the exact
+arm of a dense selection each row's last match rides the iterations in a
+granule cache and warm-starts the next search (:func:`_warm_applies`).
 """
 
 from __future__ import annotations
@@ -73,7 +75,8 @@ class ICPResult(NamedTuple):
     pose: torch.Tensor         # (B, 4, 4) or (4, 4) final estimate
     trace: ICPTrace
     # Final matched kd BLOCK id per source row ((B, capacity) int32, -1 =
-    # none) when the approximate arm's membership cache ran, else None.
+    # none) when the approximate arm's membership cache ran, else None
+    # (also under warm start, whose cache holds target rows).
     match_blocks: torch.Tensor | None = None
 
 
@@ -173,6 +176,34 @@ def _membership_applies(cfg: ICPConfig) -> bool:
     )
 
 
+def _warm_applies(cfg: ICPConfig) -> bool:
+    """Whether warm-start kd matching runs (the JAX package's rule): dense
+    SELECT_ALL, where every row re-seeds its own cache granule each
+    iteration, and the exact arm only (on the approximate arm the top-k cap
+    already bounds the work the radii would)."""
+    return (
+        cfg.kd_warm_start
+        and cfg.selection == Selection.ALL
+        and cfg.matching_checks == 0
+    )
+
+
+def _granule_update(cache: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
+                    granule: int) -> torch.Tensor:
+    """The warm cache after one iteration: each granule of ``granule``
+    consecutive rows takes the match of its LAST valid row (the JAX
+    package's CPU scatter order, and deterministic on the card, where a
+    scatter with duplicate indices is not); granules without a valid row
+    keep their slot. ``cache`` (B, G) int32, ``idx`` / ``valid`` (B, N)."""
+    b, n = idx.shape
+    g = cache.shape[1]
+    v = torch.nn.functional.pad(valid, (0, g * granule - n)).reshape(b, g, granule)
+    pos = torch.where(v, torch.arange(granule, device=idx.device), -1).amax(-1)
+    rows = torch.arange(g, device=idx.device) * granule + pos.clamp(min=0)
+    last = torch.gather(idx, 1, rows.clamp(max=n - 1))
+    return torch.where(pos >= 0, last.to(cache.dtype), cache)
+
+
 def _select(cfg, source, src_table, stride, generator, selected, t):
     """Stage 1. Returns the (possibly compacted) query cloud and its mask."""
     b, cap = source.valid.shape
@@ -207,37 +238,45 @@ def _select(cfg, source, src_table, stride, generator, selected, t):
     return source, selection.select_all(base_mask)
 
 
-def _match_kd_stage(cfg, q, kd_index, target_index, sel_mask, cache, seeded):
+def _match_kd_stage(cfg, q, kd_index, target_index, sel_mask, cache, seeded, target_feats):
     """kd matching stage; returns ``(idx, d2, valid, new_cache)`` with idx
-    the original target row.
+    the original target row. ``cache`` is None for the cold search,
+    :func:`kdtree.match_kd`.
 
-    ``cache`` (B, capacity) int32 is the approximate arm's block-membership
-    cache (None when it does not ride this run). Seeded, each row searches
+    Under :func:`_membership_applies` ``cache`` (B, capacity) int32 is the
+    approximate arm's block-membership cache. Seeded, each row searches
     exactly its cached block (:func:`kdtree.match_kd_cached`, no box
     ranking); unseeded, the k-capped search runs and only records each row's
     matched block. Either way the search answers in the sorted page domain,
     the block is read from it, and a row keeps its last block when an
     iteration finds no match.
 
-    Without the cache this is the cold search, :func:`kdtree.match_kd`. On
-    the exact arm of a dense selection the JAX package runs its warm start
-    there (``kdtree.match_kd_warm``); its exactness contract makes that
-    equal to this cold exact search up to ties, and the warm search itself
-    is not ported yet (ROADMAP.md queue 1 item 11)."""
+    Under :func:`_warm_applies` ``cache`` (B, ceil(capacity / granule))
+    int32 is the warm cache: row i reads slot ``i // kd_warm_granule``, a
+    matched target row (-1 = none), and searches within the exact distance
+    to it in ``target_feats`` (:func:`kdtree.match_kd_warm`, with the
+    fallback through ``target_index``); then each slot takes the match of
+    its granule's last valid row (:func:`_granule_update`)."""
     if cache is None:
         idx, d2, valid = kdtree.match_kd(
             q, kd_index, target_index, cfg.max_distance, query_mask=sel_mask,
             checks=cfg.matching_checks)
         return idx, d2, valid, None
-    if seeded:
-        sidx, d2, valid = kdtree.match_kd_cached(
-            q, kd_index, cfg.max_distance, cache, query_mask=sel_mask)
-    else:
-        sidx, d2, valid = kdtree.match_kd(
-            q, kd_index, target_index, cfg.max_distance, query_mask=sel_mask,
-            checks=cfg.matching_checks, orig_map=False)
-    cache = torch.where(sidx >= 0, sidx // kd_index.pages.shape[-1], cache)
-    return kdtree.to_orig(kd_index, sidx), d2, valid, cache
+    if _membership_applies(cfg):
+        if seeded:
+            sidx, d2, valid = kdtree.match_kd_cached(
+                q, kd_index, cfg.max_distance, cache, query_mask=sel_mask)
+        else:
+            sidx, d2, valid = kdtree.match_kd(
+                q, kd_index, target_index, cfg.max_distance, query_mask=sel_mask,
+                checks=cfg.matching_checks, orig_map=False)
+        cache = torch.where(sidx >= 0, sidx // kd_index.pages.shape[-1], cache)
+        return kdtree.to_orig(kd_index, sidx), d2, valid, cache
+    granules = torch.arange(q.shape[1], device=q.device) // cfg.kd_warm_granule
+    idx, d2, valid = kdtree.match_kd_warm(
+        q, kd_index, cfg.max_distance, cache[:, granules], target_feats,
+        query_mask=sel_mask, fallback_index=target_index, checks=cfg.matching_checks)
+    return idx, d2, valid, _granule_update(cache, idx, valid, cfg.kd_warm_granule)
 
 
 def _iteration(
@@ -259,10 +298,12 @@ def _iteration(
     tgt_table: torch.Tensor,
     cache: torch.Tensor | None,
     seeded: bool,
+    target_feats: torch.Tensor | None,
 ):
     """One pipeline iteration over all B pairs; returns
     ``(new_pose, rmse, benchmark, num_matches, cache)``, each with leading
-    B. ``cache`` / ``seeded`` are the membership cache (see
+    B. ``cache`` / ``seeded`` are the membership or warm cache and
+    ``target_feats`` the warm cache's feature table (see
     :func:`_match_kd_stage`)."""
     source, sel_mask = _select(cfg, source, src_table, stride, generator, selected, t)
 
@@ -288,7 +329,7 @@ def _iteration(
         q = knn.color_features(src_pts, source.colors) if cfg.color_icp else src_pts
         if kd_index is not None:
             idx, d2, valid, cache = _match_kd_stage(
-                cfg, q, kd_index, target_index, sel_mask, cache, seeded)
+                cfg, q, kd_index, target_index, sel_mask, cache, seeded, target_feats)
         else:
             idx, d2, valid = knn.match_indexed(
                 q, target_index, cfg.max_distance, query_mask=sel_mask)
@@ -367,7 +408,9 @@ def run_icp_batch(
     within the JAX package's resident rule) each row's matched kd block
     rides the iterations and comes back as ``ICPResult.match_blocks``;
     ``membership_seed`` ((B, capacity) int, -1 = none) seeds it, and each
-    row then searches exactly its cached block."""
+    row then searches exactly its cached block. On the exact arm of a dense
+    selection (:func:`_warm_applies`) with a kd index the warm cache rides
+    instead, starting empty; ``match_blocks`` is then None."""
     if cfg.anderson_m > 0:
         raise NotImplementedError(
             "Anderson acceleration (solvers/anderson.py) is not ported yet: "
@@ -412,7 +455,7 @@ def run_icp_batch(
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
 
-    target_index = None
+    target_index = feats = None
     if cfg.matching == Matching.KNN:
         feats = (knn.color_features(targets.points, targets.colors) if cfg.color_icp
                  else targets.points)
@@ -420,16 +463,19 @@ def run_icp_batch(
     src_table = _fuse_cloud_table(sources)
     tgt_table = _fuse_cloud_table(targets)
 
-    cache, seeded = None, False
+    cache, seeded, emit_blocks = None, False, False
     if (kd_indexes is not None and _membership_applies(cfg)
             and knn.resident_fits(kd_indexes.pages.shape[1], kd_indexes.pages.shape[-1])):
-        seeded = membership_seed is not None
+        seeded, emit_blocks = membership_seed is not None, True
         if seeded:
             cache = torch.as_tensor(membership_seed).to(dev, torch.int32)
             if tuple(cache.shape) != (b, cap):
                 raise ValueError(f"membership_seed must be {(b, cap)}, got {tuple(cache.shape)}")
         else:
             cache = torch.full((b, cap), -1, dtype=torch.int32, device=dev)
+    elif kd_indexes is not None and _warm_applies(cfg):
+        n_granules = -(-cap // cfg.kd_warm_granule)
+        cache = torch.full((b, n_granules), -1, dtype=torch.int32, device=dev)
     rmse = torch.empty((b, n_iter), dtype=torch.float32, device=dev)
     bench = torch.empty_like(rmse)
     num_matches = torch.empty((b, n_iter), dtype=torch.int32, device=dev)
@@ -437,10 +483,10 @@ def run_icp_batch(
         pose, rmse[:, t], bench[:, t], num_matches[:, t], cache = _iteration(
             cfg, sources, targets, pose, stride, generator, selected, t,
             gt_src, gt_tgt, gtv, run_benchmark, target_index, kd_indexes,
-            src_table, tgt_table, cache, seeded,
+            src_table, tgt_table, cache, seeded, feats,
         )
     return ICPResult(pose=pose, trace=ICPTrace(rmse=rmse, benchmark=bench, num_matches=num_matches),
-                     match_blocks=cache)
+                     match_blocks=cache if emit_blocks else None)
 
 
 def run_icp(
