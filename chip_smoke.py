@@ -8,7 +8,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, in order; any failure exits nonzero:
 
 1. Set-up: fail at once without a CUDA device; TF32 off for matmul and
-   cuDNN; the card's name and power limit; build the five kernels from
+   cuDNN; the card's name and power limit; build the eight kernels from
    ``icp_variants_tpu_torch/csrc`` (nvcc, one per source in parallel) and
    print the time.
 2. ETH kernels (D = 3): each kernel against its plain PyTorch version at
@@ -81,9 +81,24 @@ Phases, in order; any failure exits nonzero:
    600,000-point pair, whose table the JAX package serves in its packed
    mode: two match_kd_warm calls and kd_block_search against its plain
    version on every row.
-7. The record: launches of each kernel on the main paths (the ETH, colour,
-   projective and dense arms); fails unless each ran where its path needs
-   it.
+7. The dense and tile-pruned matchers and the seeded search's pose mode:
+   dense_nn_search (the matcher behind ``knn.match``) on ETH pair 0 as
+   ``profile_stages`` feeds it (365,056 rows, p = 0.01 mask-based,
+   unselected rows at the pad sentinel, D = 3) and on colour frame 1
+   against frame 0 (D = 6), each against its plain version on every row
+   and against cKDTree on the selected rows within the expansion's
+   rounding; ``profile_stages`` on the ETH headline and colour configs
+   (its report printed; the kernel launched 4 times per call);
+   pruned_nn_search (``nn_search_pruned``) on pair 0's selected queries
+   at max_distance 10 and 0.01 and on the colour frame at 0.1, against its
+   plain version and cKDTree; cached_block_search's pose mode at the
+   colour checks16 arm's fine level (raw features, the warm-up's final
+   poses) against its plain version and transform-then-search.
+8. The record: launches of each kernel on the main paths (the ETH, colour,
+   projective and dense arms, the profile path); fails unless each ran
+   where its path needs it (pruned_nn_search and the pose mode, on no
+   pipeline path, count phase 7's direct calls, read from the wrappers'
+   counts).
 
 It prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
 power limit line, and as its last line ``{"ok": true, "device": {...}}``.
@@ -528,18 +543,22 @@ def main() -> int:
     print(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     build_s = _cuda.build_all()
-    print(f"  kernel build: {build_s:.2f} s (nvcc, {len(_cuda.KERNELS)} sources in parallel)")
+    n_src = len({src for src, _, _ in _cuda.KERNELS.values()})
+    print(f"  kernel build: {build_s:.2f} s (nvcc, {len(_cuda.KERNELS)} kernels from {n_src} "
+          "sources in parallel)")
     for name, log in _cuda.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
     rows_eth, launches_eth = eth_phase()
-    rows_color, launches_color = color_phase()
+    rows_color, launches_color, colour = color_phase()
     rows_proj, launches_proj = projective_phase()
     rows_dense, launches_dense = dense_phase()
-    record(rows_eth, launches_eth, {**rows_color, **rows_proj, **rows_dense},
+    rows_match, launches_match = matcher_phase(colour)
+    del colour
+    record(rows_eth, launches_eth, {**rows_color, **rows_proj, **rows_dense, **rows_match},
            collections.Counter(launches_color) + collections.Counter(launches_proj)
-           + collections.Counter(launches_dense))
+           + collections.Counter(launches_dense) + collections.Counter(launches_match))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1183,8 +1202,8 @@ def color_phase():
         torch.backends.cuda.matmul.allow_tf32 = False
     real_cached = kdtree.nn_search_kd_cached
 
-    def planted(queries, index, max_distance, blk_ids):
-        idx, d2 = real_cached(queries, index, max_distance, blk_ids)
+    def planted(queries, index, max_distance, blk_ids, pose=None):
+        idx, d2 = real_cached(queries, index, max_distance, blk_ids, pose=pose)
         row = torch.arange(idx.shape[-1], device=idx.device)
         moved = torch.where(idx % index.pages.shape[-1] > 0, idx - 1, idx + 1)
         return torch.where((idx >= 0) & (row % 8 == 0), moved, idx), d2
@@ -1213,7 +1232,9 @@ def color_phase():
     launches = collections.Counter()
     for arm in cfgs:
         launches.update(counts[arm])
-    return rows, dict(launches)
+    state = dict(sources=sources, targets=targets, tgt_host=tgt_host, cfgs=cfgs, kds=kds,
+                 warm=warm, blk=blk, q_ap=q_ap)
+    return rows, dict(launches), state
 
 
 def color_errors(poses):
@@ -1876,16 +1897,309 @@ def dense_phase():
     return {"kd_radius_search": row, "kd_block_search_packed": packed}, dict(launches)
 
 
+def expansion_tol(q, t, d):
+    """First-order rounding bound of the expansion's d2 for f64 rows ``q``
+    against ``t``: (2D + 2) * 2^-24 * (|q|^2 + |t|^2) (the D products and
+    sums of each norm and of q.t, each rounded once)."""
+    return (2 * d + 2) * 2.0 ** -24 * ((q ** 2).sum(-1) + (t ** 2).sum(-1))
+
+
+def expansion_vs_ckdtree(q, t_real, rows_ok, idx, d2, bound_val=None):
+    """Hold an expansion search's answers (``idx`` into the target rows,
+    ``d2``) for f64 queries ``q`` against cKDTree over the real target rows
+    ``t_real`` (``rows_ok`` their row numbers): each returned point is a
+    real row whose exact distance lies within the rounding of the kernel's
+    d2 and of cKDTree's distance, and with ``bound_val`` a row is found
+    exactly where cKDTree's distance lies below the bound by more than the
+    rounding (and not where it lies above by more). Returns None on a
+    failure, else (rows found, rows whose index equals cKDTree's, the worst
+    share of the tolerance used)."""
+    from scipy.spatial import cKDTree
+
+    d = q.shape[-1]
+    dref, jref = cKDTree(t_real).query(q, k=1, workers=-1)
+    d2ref, iref = dref * dref, rows_ok[jref]
+    e_ref = expansion_tol(q, t_real[jref], d)
+    found = idx >= 0
+    if bound_val is not None:
+        clear = np.abs(d2ref - bound_val) > 2 * e_ref
+        if not (np.all(found[(d2ref < bound_val) & clear])
+                and not np.any(found[(d2ref > bound_val) & clear])):
+            return None
+    pos = np.searchsorted(rows_ok, idx[found])
+    if np.any(pos >= len(rows_ok)) or np.any(rows_ok[np.minimum(pos, len(rows_ok) - 1)]
+                                             != idx[found]):
+        return None                                      # not a real target row
+    qf, tf = q[found], t_real[pos]
+    exact = ((qf - tf) ** 2).sum(-1)
+    e_ret = expansion_tol(qf, tf, d)
+    gap = np.abs(d2[found].astype(np.float64) - exact) / e_ret
+    over = (exact - d2ref[found]) / (e_ret + e_ref[found])
+    if gap.max(initial=0) > 1 or over.max(initial=0) > 1 or over.min(initial=0) < -1e-6:
+        return None
+    same = int((idx[found] == iref[found]).sum())
+    return int(found.sum()), same, float(max(gap.max(initial=0), over.max(initial=0)))
+
+
+def cell_work(visit, q_real, t_real, tile_q, tile_t, d):
+    """Bytes and f32 operations the pruned search needs: 3D operations per
+    (real query, real target) pair of each visited (query tile, target
+    tile) cell; each query, visit byte and output once, each visited target
+    tile's real rows once."""
+    import torch
+
+    b, nqt, ntt = visit.shape
+    rq = torch.nn.functional.pad(q_real.long(), (0, nqt * tile_q - q_real.shape[1]))
+    rq = rq.reshape(b, nqt, tile_q).sum(-1).double()
+    rt = torch.nn.functional.pad(t_real.long(), (0, ntt * tile_t - t_real.shape[1]))
+    rt = rt.reshape(b, ntt, tile_t).sum(-1).double()
+    pairs = float(torch.einsum("bij,bi,bj->", visit.double(), rq, rt))
+    touched = visit.any(1)
+    n = q_real.shape[1]
+    nbytes = b * n * (d + 1 + 2) * 4 + float(rt[touched].sum()) * (d + 1) * 4 + visit.numel()
+    return nbytes, pairs * 3 * d, pairs
+
+
+def matcher_phase(colour):
+    """Phase 7 on the card: the dense matcher behind ``knn.match`` (TPU
+    kernel 6) as the per-stage profiler feeds it, ``profile_stages`` itself,
+    the tile-pruned matcher (TPU kernel 7) and the seeded search's pose
+    mode (TPU kernel 2e) at full width. ``colour`` is the colour phase's
+    state. Returns the kernel rows and the launches of the profile path.
+    Raises :class:`Failure` on a failed check."""
+    import torch
+
+    from icp_variants_tpu_torch.core import cloud as cloud_lib
+    from icp_variants_tpu_torch.ops import _cuda, kdtree, knn, selection
+    from icp_variants_tpu_torch.pipeline import icp, profiling
+    from icp_variants_tpu_torch.pipeline.config import (
+        ICPConfig, Metric, Minimizer, Selection,
+    )
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    print("phase 7: the dense matcher and its profiler, the tile-pruned matcher, the seeded "
+          "search's pose mode", flush=True)
+    t0 = time.perf_counter()
+    sp, sn, tp, tn = make_pairs(1)[0]
+    src = cloud_lib.from_numpy(sp, normals=sn, morton_order=True, device=dev)
+    tgt_h = cloud_lib.from_numpy(tp, normals=tn, morton_order=True, device="cpu")
+    tgt = tgt_h.to(dev)
+    cap = src.capacity
+    print(f"  host data: ETH pair 0, {cap} rows; {time.perf_counter() - t0:.1f} s", flush=True)
+    rows = {}
+
+    # ---- kernel 6 at both widths, as profile_stages feeds it ---------------
+    def dense_check(label, q, t, q_ok, t_ok, plain_rows=PLAIN_CHUNK_ROWS):
+        """dense_nn_search on (1, N, D) queries against (1, M, D) targets:
+        against its plain version on every row, and on the ``q_ok`` rows
+        against cKDTree over the ``t_ok`` rows."""
+        d = q.shape[-1]
+        idx, d2 = knn.dense_nn_search(q, t)
+        (idx_p, d2_p), plain_ms = plain_pass(lambda s, e: knn.nn_search_xla(q[:, s:e], t),
+                                            q.shape[1], rows=plain_rows)
+        check(torch.equal(idx, idx_p) and torch.equal(d2, d2_p),
+              f"dense_nn_search D={d} ({label}, all {q.shape[1]} rows): idx and d2 equal to plain")
+        rows_ok = np.flatnonzero(t_ok[0].cpu().numpy())
+        sel = q_ok[0].cpu().numpy()
+        res = expansion_vs_ckdtree(q[0].cpu().numpy()[sel].astype(np.float64),
+                                   t[0].cpu().numpy()[rows_ok].astype(np.float64), rows_ok,
+                                   idx[0].cpu().numpy()[sel], d2[0].cpu().numpy()[sel])
+        check(res is not None,
+              f"dense_nn_search D={d} ({label}): on all {int(sel.sum())} selected rows the "
+              f"returned point's exact distance is within the expansion's rounding "
+              f"((2D+2) 2^-24 (|q|^2+|t|^2)) of the kernel's d2 and of cKDTree's")
+        n_real_t = len(rows_ok)
+        row = dict(err=float((d2 - d2_p).abs().max()),
+                   ms=time_ms(lambda: knn.dense_nn_search(q, t), 5), plain_ms=plain_ms,
+                   bound=bound(q.shape[1] * (d + 2) * 4 + t.shape[1] * d * 4,
+                               q.shape[1] * n_real_t * 3 * d),
+                   shapes=f"1 x {q.shape[1]} rows against {t.shape[1]} ({n_real_t} real), D = {d}",
+                   plain_on=f"the same rows, in windows of {plain_rows}")
+        print(f"  dense_nn_search D={d} ({label}): kernel {row['ms']:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {row['bound'][0]:.5f} ms ({row['bound'][1]}); "
+              f"{res[1]} of {res[0]} selected rows equal to cKDTree's index, worst "
+              f"{res[2]:.3f} of the rounding tolerance", flush=True)
+        return row
+
+    mask_gen = torch.Generator(device=dev).manual_seed(0)
+    mask = selection.random_sampling(mask_gen, src.valid, SELECTION_P)
+    q3 = torch.where(mask[:, None], src.points, cloud_lib.PAD_SENTINEL)[None].contiguous()
+    rows["dense_nn_search"] = dense_check("ETH pair 0, p = 0.01 mask-based, unselected rows at "
+                                          "the pad sentinel", q3, tgt.points[None], mask[None],
+                                          tgt.valid[None])
+    frame = icp.Cloud(*(f[0] for f in colour["sources"]))
+    ctgt = colour["tgt_host"].to(dev)
+    q6 = knn.color_features(torch.where(frame.valid[:, None], frame.points,
+                                        cloud_lib.PAD_SENTINEL), frame.colors)[None].contiguous()
+    t6 = knn.color_features(ctgt.points, ctgt.colors)[None].contiguous()
+    rows["dense_nn_search_colour"] = dense_check("colour frame 1 against frame 0", q6, t6,
+                                                 frame.valid[None], ctgt.valid[None])
+    del q3
+    torch.cuda.empty_cache()
+
+    # ---- profile_stages at full width -------------------------------------
+    eth_cfg = ICPConfig(metric=Metric.SYMMETRIC, minimizer=Minimizer.LINEAR,
+                        selection=Selection.RANDOM, selection_proba=SELECTION_P,
+                        n_iterations=N_ITERATIONS, max_distance=MAX_DISTANCE)
+    reports, launches = {}, collections.Counter()
+    for label, cfg, s_, t_ in (("ETH headline, pair 0", eth_cfg, src, tgt),
+                               ("colour exact, frame 1", colour["cfgs"]["exact"], frame, ctgt)):
+        _cuda.reset_launches()
+        times = profiling.profile_stages(cfg, s_, t_, repetitions=3, device=dev)
+        n6 = _cuda.LAUNCHES["dense_nn_search"]
+        launches.update(_cuda.LAUNCHES)
+        print(f"  profile_stages ({label}):", flush=True)
+        for line in times.report().splitlines():
+            print(f"    {line}")
+        fields = [times.selection, times.matching, times.weighting, times.rejection,
+                  times.solver, times.total_wall]
+        check(all(np.isfinite(f) and f >= 0 for f in fields) and times.matching > 0,
+              f"profile_stages ({label}): finite, non-negative stage times")
+        check(n6 == 4, f"profile_stages ({label}): dense_nn_search launched {n6} times "
+                       "(warm-up + 3)")
+        reports[label] = dict(selection_ms=times.selection * 1e3, matching_ms=times.matching * 1e3,
+                              weighting_ms=times.weighting * 1e3,
+                              rejection_ms=times.rejection * 1e3, solver_ms=times.solver * 1e3)
+    print("  profile_stages: " + json.dumps(reports))
+
+    # ---- kernel 7: the tile-pruned matcher ---------------------------------
+    direct = 0
+
+    def pruned_check(label, q, q_ok, targets, t_ok, maxd):
+        """nn_search_pruned's kernel against its plain version (bit for bit)
+        and against cKDTree within the threshold. The checked call's launch
+        is read from the wrapper's count; the timing loop's are not kept."""
+        nonlocal direct
+        d = q.shape[-1]
+        index = knn.build_target_index(targets, tile_t=knn.INDEX_TILE_T)
+        bv = knn.bound_value(maxd)
+        visit = knn.pruned_visit_mask(q, index, bv, knn.TILE_Q)
+        args = (q, index.points, visit, bv)
+        kw = dict(tile_q=knn.TILE_Q, tile_t=knn.INDEX_TILE_T)
+        _cuda.reset_launches()
+        idx, d2 = knn.pruned_nn_search(*args, **kw)
+        n_launch = _cuda.LAUNCHES["pruned_nn_search"]
+        check(n_launch == 1, f"pruned_nn_search D={d} ({label}, max_distance {maxd:g}): "
+                             f"one call launched the kernel {n_launch} times")
+        direct += n_launch
+        (idx_p, d2_p), plain_ms = plain_pass(
+            lambda s, e: knn.pruned_nn_search_plain(q[:, s:e], index.points,
+                                                    visit[:, s // knn.TILE_Q:], bv, **kw),
+            q.shape[1], rows=8 * knn.TILE_Q)
+        check(torch.equal(d2, d2_p) and torch.equal(idx, idx_p),
+              f"pruned_nn_search D={d} ({label}, max_distance {maxd:g}, all {q.shape[1]} rows): "
+              "d2 and idx equal to plain")
+        rows_ok = np.flatnonzero(t_ok[0].cpu().numpy())
+        sel = q_ok[0].cpu().numpy()
+        res = expansion_vs_ckdtree(q[0].cpu().numpy()[sel].astype(np.float64),
+                                   targets[0].cpu().numpy()[rows_ok].astype(np.float64), rows_ok,
+                                   idx[0].cpu().numpy()[sel], d2[0].cpu().numpy()[sel], bv)
+        check(res is not None,
+              f"pruned_nn_search D={d} ({label}, max_distance {maxd:g}): found exactly where "
+              f"cKDTree's distance is below the bound beyond the rounding, each match within it")
+        q_real = q_ok.clone()
+        nbytes, nops, pairs = cell_work(visit, q_real, t_ok, knn.TILE_Q, knn.INDEX_TILE_T, d)
+        row = dict(err=float((d2 - d2_p).abs().max()),
+                   ms=time_ms(lambda: knn.pruned_nn_search(*args, **kw), 10), plain_ms=plain_ms,
+                   bound=bound(nbytes, nops),
+                   shapes=f"1 x {q.shape[1]} rows (D = {d}) against {targets.shape[1]}, "
+                          f"{knn.INDEX_TILE_T}-row tiles, max_distance {maxd:g}",
+                   plain_on=f"the same rows, in windows of {8 * knn.TILE_Q}",
+                   visited_cells=f"{int(visit.sum())} of {visit.numel()}")
+        print(f"  pruned_nn_search D={d} ({label}, max_distance {maxd:g}): kernel "
+              f"{row['ms']:.4f} ms, plain {plain_ms:.4f} ms, bound {row['bound'][0]:.5f} ms "
+              f"({row['bound'][1]}); {row['visited_cells']} cells visited, {pairs:.4g} real pairs; "
+              f"{res[0]} of {int(sel.sum())} real rows found, {res[1]} equal to cKDTree's index",
+              flush=True)
+        return row
+
+    k_cap = icp._compact_capacity(cap, SELECTION_P)
+    sel_idx, in_range = selection.bernoulli_gap_indices(
+        torch.Generator(device=dev).manual_seed(0), SELECTION_P, 1, cap, k_cap, batch=(1,),
+        device=dev)
+    src_b = icp.stack_clouds([src])
+    qc, qm = icp._compact_cloud(src_b, icp._fuse_cloud_table(src_b), sel_idx, in_range, False)
+    first = torch.argmax(qm.to(torch.uint8), dim=-1)
+    qk = torch.where(qm[..., None], qc.points, knn.take_rows(qc.points, first[:, None]))
+    qk = qk.contiguous()
+    for maxd in (MAX_DISTANCE, 0.01):
+        row = pruned_check(f"ETH pair 0's {k_cap} selected query slots", qk, qm,
+                           tgt.points[None], tgt.valid[None], maxd)
+        if maxd == MAX_DISTANCE:
+            rows["pruned_nn_search"] = row
+        else:
+            rows["pruned_nn_search"]["tight"] = row
+    rows["pruned_nn_search"]["colour"] = pruned_check(
+        "colour frame 1 against frame 0", q6, frame.valid[None], t6, ctgt.valid[None],
+        TUM_MAX_DISTANCE)
+    rows["pruned_nn_search"]["direct_launches"] = direct
+    del q6, t6
+    torch.cuda.empty_cache()
+
+    # ---- kernel 2e: the seeded search's pose mode -------------------------
+    ka, warm = colour["kds"]["checks16"], colour["warm"]["checks16"]
+    sources, blk, q_ap = colour["sources"], colour["blk"], colour["q_ap"]
+    b, n = blk.shape
+    d = 6
+    raw = knn.color_features(sources.points, sources.colors).contiguous()
+    pose = warm.pose.contiguous()
+    _cuda.reset_launches()
+    pi, pd = kdtree.nn_search_kd_cached(raw, ka, TUM_MAX_DISTANCE, blk, pose=pose)
+    pose_launches = _cuda.LAUNCHES["cached_block_search"]
+    check(pose_launches == 1, f"cached_block_search with pose=: one call launched the kernel "
+                              f"{pose_launches} times")
+    (pi_p, pd_p), plain_ms = plain_pass(
+        lambda s, e: kdtree.nn_search_kd_cached_oracle(raw[:, s:e], ka, TUM_MAX_DISTANCE,
+                                                       blk[:, s:e], pose=pose), n)
+    check(torch.equal(pi, pi_p) and torch.equal(pd, pd_p),
+          f"cached_block_search with pose= (all {b} x {n} rows, raw features, the checks16 "
+          "warm-up's final poses): idx and d2 equal to plain")
+    ti, td = kdtree.nn_search_kd_cached(q_ap, ka, TUM_MAX_DISTANCE, blk)
+    agree = float((pi == ti).float().mean())
+    check(torch.allclose(pd, td, rtol=1e-4, atol=1e-6) and agree >= 0.99,
+          f"cached_block_search with pose= against transform-then-search: d2 within rtol 1e-4 / "
+          f"atol 1e-6, {agree:.6f} of the indices equal (bit for bit: "
+          f"{bool(torch.equal(pd, td) and torch.equal(pi, ti))})")
+    real_a = (ka.block_orig >= 0).sum(-1)
+    has = blk >= 0
+    bi = torch.arange(b, device=dev)[:, None].expand_as(blk)
+    row_pts = int(real_a[bi[has], blk[has].long()].sum())
+    used = torch.zeros((b, ka.pages.shape[1]), dtype=torch.bool, device=dev)
+    used[bi[has], blk[has].long()] = True
+    pose_row = dict(
+        err=float((pd - pd_p).abs().max()), ms=time_ms(
+            lambda: kdtree.nn_search_kd_cached(raw, ka, TUM_MAX_DISTANCE, blk, pose=pose), 10),
+        plain_ms=plain_ms, plain_on=f"{b} x {n} rows (D = 6), in windows of {PLAIN_CHUNK_ROWS}",
+        bound=bound(b * n * (d + 1 + 2) * 4 + b * 64 + int(real_a[used].sum()) * d * 4,
+                    row_pts * 3 * d + 15 * int(has.sum())),
+        shapes=f"{b} x {n} rows (D = 6, raw), {ka.pages.shape[1]} blocks, a pose per frame")
+    print(f"  cached_block_search with pose=: kernel {pose_row['ms']:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {pose_row['bound'][0]:.5f} ms ({pose_row['bound'][1]})",
+          flush=True)
+    del raw, pi, pd, pi_p, pd_p, ti, td
+    pose_row["launches"] = pose_launches
+    rows["cached_block_search_pose"] = pose_row
+    return rows, dict(launches)
+
+
 def record(rows_eth, launches_eth, rows, launches) -> None:
-    """Phase 7: the kernels line. Each kd kernel's time, bound and plain
+    """Phase 8: the kernels line. Each kd kernel's time, bound and plain
     time are at the colour path's full shapes (D = 6; the plain version in
     windows of rows, visited_search's on the live rows only), its ETH
     numbers (D = 3, full shapes) under ``eth``; the projective window
     search's at the projective path's; kd_radius_search's at the dense
     path's (D = 3), its colour reading (D = 6, k = 0) under ``colour``, and
-    kd_block_search's on the packed-size pair under ``packed``; launches
-    are summed over every path's main runs."""
-    print("phase 7: the record", flush=True)
+    kd_block_search's on the packed-size pair under ``packed``;
+    dense_nn_search's at the ETH width as the profiler feeds it (D = 3), its
+    colour frame under ``colour``; pruned_nn_search's on ETH pair 0's
+    selected queries at max_distance 10, at 0.01 under ``tight`` and on the
+    colour frame under ``colour``; cached_block_search's pose mode under
+    ``transform_pose``. Launches are summed over every path's main runs
+    (dense_nn_search's on the profile path); pruned_nn_search and the pose
+    mode run on no pipeline path, and their launches are phase 7's direct
+    calls, read from the wrappers' counts."""
+    print("phase 8: the record", flush=True)
     sources_of = {
         "box_topk": ("icp_variants_tpu_torch/csrc/box_topk.cu",
                      "icp_variants_tpu/ops/kdtree.py:501"),
@@ -1900,19 +2214,51 @@ def record(rows_eth, launches_eth, rows, launches) -> None:
             "icp_variants_tpu/ops/knn.py:1321"),
         "kd_radius_search": ("icp_variants_tpu_torch/csrc/kd_radius_search.cu",
                              "icp_variants_tpu/ops/knn.py:891"),
+        "dense_nn_search": ("icp_variants_tpu_torch/csrc/dense_nn_search.cu",
+                            "icp_variants_tpu/ops/knn.py:120"),
+        "pruned_nn_search": ("icp_variants_tpu_torch/csrc/dense_nn_search.cu",
+                             "icp_variants_tpu/ops/knn.py:360"),
     }
     kernels = []
     for name, (src, replaces) in sources_of.items():
         c, e = rows[name], rows_eth.get(name)
-        n_launch = launches_eth.get(name, 0) + launches.get(name, 0)
-        check(n_launch > 0, f"{name}: launched {n_launch} times on the main paths")
+        if name == "pruned_nn_search":
+            # TPU kernel 7 is on no pipeline path: its count is the phase's calls.
+            n_launch = c["direct_launches"]
+            check(n_launch > 0, f"{name}: launched {n_launch} times by phase 7's direct calls "
+                                "(no pipeline path runs it)")
+        else:
+            n_launch = launches_eth.get(name, 0) + launches.get(name, 0)
+            check(n_launch > 0, f"{name}: launched {n_launch} times on the main paths")
         entry = dict(
             name=name, route="cuda", source=src, replaces=replaces, launches=n_launch,
             max_abs_err=max(c["err"], e["err"] if e else 0.0), ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound"][0], bound_by=c["bound"][1],
             library_ms=None, shapes=c["shapes"], plain_on=c["plain_on"])
         if name == "cached_block_search":
-            entry["also_replaces"] = "icp_variants_tpu/ops/knn.py:1321 (restrict_col mode)"
+            entry["also_replaces"] = ("icp_variants_tpu/ops/knn.py:1321 (restrict_col and "
+                                      "transform_pose modes)")
+            p = rows["cached_block_search_pose"]
+            entry["transform_pose"] = dict(
+                ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound"][0],
+                bound_by=p["bound"][1], max_abs_err=p["err"], shapes=p["shapes"],
+                launches=p["launches"], launches_on="phase 7's direct call: no pipeline path "
+                "runs the pose mode")
+        if name == "dense_nn_search":
+            entry["launches_on"] = "the profile path: profile_stages at ETH and colour width"
+            col = rows["dense_nn_search_colour"]
+            entry["max_abs_err"] = max(c["err"], col["err"])
+            entry["colour"] = dict(ms=col["ms"], plain_ms=col["plain_ms"], bound_ms=col["bound"][0],
+                                   bound_by=col["bound"][1], shapes=col["shapes"])
+        if name == "pruned_nn_search":
+            entry["launches_on"] = "phase 7's direct calls: no pipeline path runs TPU kernel 7"
+            entry["max_abs_err"] = max(c["err"], c["tight"]["err"], c["colour"]["err"])
+            entry["visited_cells"] = c["visited_cells"]
+            for key in ("tight", "colour"):
+                r = c[key]
+                entry[key] = dict(ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+                                  bound_by=r["bound"][1], shapes=r["shapes"],
+                                  visited_cells=r["visited_cells"])
         if name == "projective_window_search":
             entry["mode"] = "pixel_window"
         if name == "kd_radius_search":

@@ -59,6 +59,12 @@ __device__ __forceinline__ float icp_diff2(float t, float x) {
 // where the block is one of its row's picks. At the end the parts merge
 // their running (distance, pick position, slot) lexicographically.
 //
+// With a non-null `pose` ((B, 16) f32, row-major 4 x 4 per pair) the
+// queries are raw features and each row's three spatial columns are moved
+// as it is loaded: x'_r = ((P_r0 x + P_r1 y) + P_r2 z) + P_r3, every product
+// and sum rounded on its own (core/se3.transform_points' order); the other
+// features pass through.
+//
 // Semantics: best = binit (the row's entry of `binit`, or `binit_value`
 // when `binit` is null), idx = -1; over the row's picks in order (ids < 0
 // are no pick; ids past nc - 1 are clipped to nc - 1) and their slots in
@@ -75,7 +81,7 @@ __device__ __forceinline__ float icp_diff2(float t, float x) {
 
 template <int D>
 __device__ __forceinline__ void icp_gate_block_search(
-    const float* __restrict__ q, const int32_t* __restrict__ sel,
+    const float* __restrict__ q, const float* __restrict__ pose, const int32_t* __restrict__ sel,
     const float* __restrict__ binit, float binit_value, const float* __restrict__ pages,
     float* __restrict__ d2_out, int32_t* __restrict__ idx_out, int N, int nc, int cap_pad,
     int k) {
@@ -114,6 +120,15 @@ __device__ __forceinline__ void icp_gate_block_search(
   float qv[D];
 #pragma unroll
   for (int j = 0; j < D; ++j) qv[j] = live ? q[row * D + j] : 0.0f;
+  if (pose != nullptr) {
+    const float* P = pose + static_cast<size_t>(b) * 16;
+    const float x = qv[0], y = qv[1], z = qv[2];
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+      qv[r] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(x, P[4 * r]), __fmul_rn(y, P[4 * r + 1])),
+                                  __fmul_rn(z, P[4 * r + 2])),
+                        P[4 * r + 3]);
+  }
   float best = live ? (binit != nullptr ? binit[row] : binit_value) : 0.0f;
   int bpos = -1, bblk = -1, bslot = -1;
   const int per = (cap_pad + ICP_PARTS - 1) / ICP_PARTS;

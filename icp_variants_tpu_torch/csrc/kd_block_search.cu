@@ -26,7 +26,8 @@ kd_block_search_kernel(const float* __restrict__ q, const int32_t* __restrict__ 
                        const float* __restrict__ binit, const float* __restrict__ pages,
                        float* __restrict__ d2_out, int32_t* __restrict__ idx_out,
                        int N, int nc, int cap_pad, int k) {
-  icp_gate_block_search<D>(q, sel, binit, 0.0f, pages, d2_out, idx_out, N, nc, cap_pad, k);
+  icp_gate_block_search<D>(q, nullptr, sel, binit, 0.0f, pages, d2_out, idx_out, N, nc, cap_pad,
+                           k);
 }
 
 template <int D>

@@ -44,8 +44,9 @@ NVCC_FLAGS = [
 KERNEL_DIMS = (3, 6)
 
 # kernel name -> (source file, C function, ctypes argtypes); every C
-# function ends with (..., void* stream), and the five kd kernels' with
-# (..., int D, void* stream). projective_window_search takes geometry only.
+# function ends with (..., void* stream), and all but
+# projective_window_search (geometry only) with (..., int D, void* stream).
+# dense_nn_search and pruned_nn_search are two entries of one source.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "box_topk": ("box_topk.cu", "box_topk_launch", [_P] * 6 + [_I] * 5 + [_P]),
@@ -55,16 +56,21 @@ KERNELS = {
         "visited_search.cu", "visited_search_launch", [_P] * 7 + [_I] * 5 + [_P]),
     "cached_block_search": (
         "cached_block_search.cu", "cached_block_search_launch",
-        [_P, _P, _F] + [_P] * 3 + [_I] * 5 + [_P]),
+        [_P, _P, _P, _F] + [_P] * 3 + [_I] * 5 + [_P]),
     "kd_radius_search": (
         "kd_radius_search.cu", "kd_radius_search_launch", [_P] * 8 + [_I] * 6 + [_P]),
     "projective_window_search": (
         "projective_window_search.cu", "projective_window_search_launch",
         [_P] * 6 + [_I] * 6 + [_P]),
+    "dense_nn_search": (
+        "dense_nn_search.cu", "dense_nn_search_launch", [_P] * 6 + [_I] * 4 + [_P]),
+    "pruned_nn_search": (
+        "dense_nn_search.cu", "pruned_nn_search_launch",
+        [_P] * 5 + [_F] + [_P] * 2 + [_I] * 7 + [_P]),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
-BUILD_LOG: dict[str, str] = {}   # kernel name -> nvcc/ptxas output
+BUILD_LOG: dict[str, str] = {}   # source file -> nvcc/ptxas output
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -93,29 +99,30 @@ def _lib_path(src: Path) -> Path:
 
 
 def build_all() -> float:
-    """Build every kernel library that is missing (in parallel) and load
-    them all; returns the seconds spent. Raises on any build failure."""
+    """Build every kernel library that is missing (one nvcc per source, in
+    parallel) and load them all; returns the seconds spent. Raises on any
+    build failure."""
     with _lock:
         if len(_libs) == len(KERNELS):
             return 0.0
         t0 = time.perf_counter()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         jobs = {}
-        for name, (src_name, _, _) in KERNELS.items():
+        for src_name in sorted({src for src, _, _ in KERNELS.values()}):
             src = CSRC / src_name
             out = _lib_path(src)
             if out.exists():
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
-            jobs[name] = (out, tmp, subprocess.Popen(
+            jobs[src_name] = (out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         failed = []
-        for name, (out, tmp, proc) in jobs.items():
+        for src_name, (out, tmp, proc) in jobs.items():
             log, _ = proc.communicate()
-            BUILD_LOG[name] = log
+            BUILD_LOG[src_name] = log
             if proc.returncode != 0:
-                failed.append(f"{name} (nvcc rc {proc.returncode}):\n{log}")
+                failed.append(f"{src_name} (nvcc rc {proc.returncode}):\n{log}")
             else:
                 os.replace(tmp, out)
         if failed:

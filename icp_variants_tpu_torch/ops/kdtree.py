@@ -13,6 +13,8 @@ PyTorch port of ``icp_variants_tpu.ops.kdtree`` on the ETH main path:
   query instead (:func:`nn_search_kd_cached`, kernel
   ``csrc/cached_block_search.cu``): the membership cache of the dense
   segmented multires driver.
+* With ``pose=`` the seeded search takes raw source features and moves
+  them itself (the JAX package's in-kernel transform).
 * Certificate: the (k+1)-th smallest bound is the smallest bound of any
   unexamined block. A query whose best distance does not beat it re-searches
   through the fallback (``knn.visited_search``, kernel
@@ -40,6 +42,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from icp_variants_tpu_torch.core import se3
 from icp_variants_tpu_torch.core.device import resolve_device
 from icp_variants_tpu_torch.ops import _cuda, knn
 
@@ -638,13 +641,28 @@ def match_kd_warm(
 # ---------------------------------------------------------------------------
 
 
+def _pose_args(q: torch.Tensor, pose) -> torch.Tensor | None:
+    """A (4, 4) or (B, 4, 4) pose as (B, 4, 4) f32 on ``q``'s device, for
+    ``q`` (B, N, D); None stays None."""
+    if pose is None:
+        return None
+    p = torch.as_tensor(pose, dtype=torch.float32).to(q.device)
+    return p.expand(q.shape[0], 4, 4) if p.dim() == 2 else p
+
+
 def nn_search_kd_cached_oracle(
-    queries: torch.Tensor, index: KDIndex, max_distance: float, blk_ids: torch.Tensor
+    queries: torch.Tensor, index: KDIndex, max_distance: float, blk_ids: torch.Tensor,
+    pose: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`nn_search_kd_cached`: the best point of each
     query's assigned block through one row gather of its coordinate-major
-    block row; ties go to the lowest slot."""
+    block row; ties go to the lowest slot. With ``pose`` the queries are
+    raw features and their spatial columns are moved first by
+    :func:`se3.transform_points` (the kernel's order of products and sums)."""
     batched, (q, index, blk) = knn._batch_args(queries, index, blk_ids)
+    pose = _pose_args(q, pose)
+    if pose is not None:
+        q = torch.cat([se3.transform_points(q[..., :3], pose), q[..., 3:]], dim=-1)
     nc, dcap = index.block_pts.shape[-2:]
     d = index.block_min.shape[-1]
     cap, cap_pad = dcap // d, index.pages.shape[-1]
@@ -665,31 +683,39 @@ def nn_search_kd_cached_oracle(
 
 
 def nn_search_kd_cached(
-    queries: torch.Tensor, index: KDIndex, max_distance: float, blk_ids: torch.Tensor
+    queries: torch.Tensor, index: KDIndex, max_distance: float, blk_ids: torch.Tensor,
+    pose: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Approximate 1-NN with seeded membership: query i searches exactly
     block ``blk_ids[i]`` of the index (-1 = nothing: idx -1, d2 = the miss
     bound), strictly below :func:`knn.bound_value`. Returns ``(sorted_idx,
     d2)`` in the pair-local page domain; no certificate.
 
-    ``queries`` (B, N, >= D), ``blk_ids`` (B, N) int. A CUDA tensor launches
-    ``csrc/cached_block_search.cu`` (D = 3 or 6, from the index); a CPU
-    tensor runs :func:`nn_search_kd_cached_oracle`."""
+    ``queries`` (B, N, >= D), ``blk_ids`` (B, N) int. ``pose`` ((4, 4), or
+    (B, 4, 4) one per pair): the queries are RAW source features, and the
+    search moves their three spatial columns by ``R p + t`` itself (the
+    JAX package's in-kernel transform); the other features pass through.
+    A CUDA tensor launches ``csrc/cached_block_search.cu`` (D = 3 or 6,
+    from the index); a CPU tensor runs :func:`nn_search_kd_cached_oracle`."""
     if queries.device.type == "cpu":
-        return nn_search_kd_cached_oracle(queries, index, max_distance, blk_ids)
+        return nn_search_kd_cached_oracle(queries, index, max_distance, blk_ids, pose=pose)
     batched, (q, index, blk) = knn._batch_args(queries, index, blk_ids)
     d = _cuda.feature_dim("cached_block_search", index.block_min.shape[-1])
     q = q[..., :d].float().contiguous()
     blk = blk.to(torch.int32).contiguous()
     b, n = q.shape[0], q.shape[1]
     nc, cap_pad = index.pages.shape[1], index.pages.shape[-1]
+    pose = _pose_args(q, pose)
     chk = _cuda.check_cuda_tensor
     chk("blk_ids", blk, torch.int32, (b, n))
     chk("pages", index.pages, torch.float32, (b, nc, 8, cap_pad))
+    if pose is not None:
+        pose = pose.contiguous()
+        chk("pose", pose, torch.float32, (b, 4, 4))
     d2 = torch.empty((b, n), dtype=torch.float32, device=q.device)
     idx = torch.empty((b, n), dtype=torch.int32, device=q.device)
-    _cuda.launch("cached_block_search", q, blk, knn.bound_value(max_distance), index.pages,
-                 d2, idx, b, n, nc, cap_pad, d)
+    _cuda.launch("cached_block_search", q, blk, pose, knn.bound_value(max_distance),
+                 index.pages, d2, idx, b, n, nc, cap_pad, d)
     return (idx, d2) if batched else (idx[0], d2[0])
 
 
@@ -699,12 +725,14 @@ def match_kd_cached(
     max_distance: float,
     blk_ids: torch.Tensor,
     query_mask: torch.Tensor | None = None,
+    pose: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Matching stage over seeded block membership (approximate arm only):
     the ``(indices, dist2, valid)`` contract of :func:`match_kd` with
-    ``orig_map=False``. Masked-out queries search nothing."""
+    ``orig_map=False``. Masked-out queries search nothing. ``pose``: see
+    :func:`nn_search_kd_cached`."""
     blk = blk_ids if query_mask is None else torch.where(query_mask, blk_ids, -1)
-    idx, d2 = nn_search_kd_cached(queries, index, max_distance, blk)
+    idx, d2 = nn_search_kd_cached(queries, index, max_distance, blk, pose=pose)
     valid = (d2 <= max_distance) & (idx >= 0)
     if query_mask is not None:
         valid = valid & query_mask

@@ -1,19 +1,23 @@
-"""Nearest-neighbour search over a tiled target index.
+"""Nearest-neighbour search.
 
-PyTorch port of the parts of ``icp_variants_tpu.ops.knn`` that the kd
-matcher needs: the host-side Morton orders (3-dim and the 6-dim colour
-order), the tile-bbox :class:`TargetIndex`, the visited-list search that
-serves the exact arm's fallback, and the JAX package's resident-table rule
-(:func:`resident_fits`), and the per-query radius search over kd blocks
-that serves tables past that rule. :func:`visited_search` and
-:func:`kd_radius_search` launch the hand-written CUDA kernels
-``csrc/visited_search.cu`` and ``csrc/kd_radius_search.cu`` on CUDA tensors
-and run their plain PyTorch versions, :func:`visited_search_plain` and
-:func:`kd_radius_search_plain`, on CPU tensors.
+PyTorch port of ``icp_variants_tpu.ops.knn``: the host-side Morton orders
+(3-dim and the 6-dim colour order), the tile-bbox :class:`TargetIndex`, the
+visited-list search that serves the exact arm's fallback, the JAX
+package's resident-table rule (:func:`resident_fits`), the per-query radius
+search over kd blocks that serves tables past that rule, and the dense and
+tile-pruned matchers behind ``knn.match`` / ``nn_search`` and
+``nn_search_pruned``. :func:`visited_search`, :func:`kd_radius_search`,
+:func:`dense_nn_search` and :func:`pruned_nn_search` launch the
+hand-written CUDA kernels ``csrc/visited_search.cu``,
+``csrc/kd_radius_search.cu`` and ``csrc/dense_nn_search.cu`` on CUDA
+tensors and run their plain PyTorch versions (:func:`visited_search_plain`,
+:func:`kd_radius_search_plain`, :func:`nn_search_xla`,
+:func:`pruned_nn_search_plain`) on CPU tensors.
 
-Distances are direct coordinate differences ``sum_j (t_j - q_j)^2``
-everywhere, never the ``|q|^2 + |t|^2 - 2 q.t`` expansion, which cancels
-catastrophically in f32 at 20 m scene scale and flips near-tie winners.
+The kd and visited-list searches score direct coordinate differences
+``sum_j (t_j - q_j)^2``. The dense and pruned matchers keep the JAX
+package's ``|q|^2 + |t|^2 - 2 q.t`` expansion, which cancels in f32 at 20 m
+scene scale: their answers are exact to within that rounding.
 
 Every tensor carries a leading pair axis B; the search functions also take
 one unbatched pair and return unbatched results.
@@ -33,6 +37,10 @@ FEATURE_PAD = 8
 # Target tile of the fallback index (one CTA walks these tiles).
 V2_TILE_T = 1024
 V2_TILE_Q = 128
+# The JAX package's default target tile of a TargetIndex, and the query
+# tile of its pruned search's visit mask.
+INDEX_TILE_T = 512
+TILE_Q = 256
 # Row fill of the tile-multiple padding of a target index.
 _ROW_PAD = 1.0e6
 # Largest kd block count per pair that kd_radius_search takes (its CUDA
@@ -155,7 +163,7 @@ class TargetIndex(NamedTuple):
     bbox_max: torch.Tensor   # (..., n_tiles, 8)
 
 
-def build_target_index(targets: torch.Tensor, *, tile_t: int = V2_TILE_T) -> TargetIndex:
+def build_target_index(targets: torch.Tensor, *, tile_t: int = INDEX_TILE_T) -> TargetIndex:
     """Tile-bbox index over ``targets`` (..., N, d) on their device. No
     sort: pruning quality comes from the load-time Morton order."""
     t = _pad_rows(_pad_features(targets.float()), tile_t, _ROW_PAD)
@@ -390,3 +398,218 @@ def match_indexed(
     if query_mask is not None:
         valid = valid & query_mask
     return idx, d2, valid
+
+
+# ---------------------------------------------------------------------------
+# Dense and tile-pruned exact 1-NN by the |q|^2 + |t|^2 - 2 q.t expansion
+# ---------------------------------------------------------------------------
+#
+# The JAX package's dense matcher (nn_search_xla / nn_search_pallas behind
+# knn.match) and its tile-pruned matcher (nn_search_pruned) score with the
+# expansion. Here the product q.t is summed feature by feature and every
+# product and sum is rounded on its own, in the plain versions and in the
+# CUDA kernels alike, so the two agree bit for bit. No matrix product: a
+# lower-precision product flips near-tie winners.
+
+
+def norm2(x: torch.Tensor) -> torch.Tensor:
+    """``sum_j x_j^2`` over the trailing feature dim, summed in column
+    order: the ``|q|^2`` and ``|t|^2`` of the expansion."""
+    acc = x[..., 0] * x[..., 0]
+    for j in range(1, x.shape[-1]):
+        acc = acc + x[..., j] * x[..., j]
+    return acc
+
+
+def expanded_d2(q, qn2, t, tn2) -> torch.Tensor:
+    """(B, W, M) squared distances ``(|q|^2 + |t|^2) - 2 g`` of queries
+    ``q`` (B, W, D) to targets ``t`` (B, M, >= D), with ``g = ((q_0 t_0 +
+    q_1 t_1) + q_2 t_2) ...`` over the D features of ``q``."""
+    g = q[:, :, None, 0] * t[:, None, :, 0]
+    for j in range(1, q.shape[-1]):
+        g += q[:, :, None, j] * t[:, None, :, j]
+    d2 = qn2[:, :, None] + tn2[:, None, :]
+    return d2.sub_(g.mul_(2.0))
+
+
+def nn_search_xla(
+    queries: torch.Tensor, targets: torch.Tensor, *, chunk: int = 1024
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`dense_nn_search` (the JAX package's
+    ``nn_search_xla``): exact 1-NN of each query over every target row by
+    :func:`expanded_d2`, ``chunk`` query rows at a time; ties go to the
+    lowest target row. ``queries`` (B, N, D) and ``targets`` (B, M, D), or
+    one unbatched pair. Returns ``(idx, d2)``."""
+    batched, (q, t) = _batch_args(queries, targets)
+    q, t = q.float(), t.float()
+    qn2, tn2 = norm2(q), norm2(t)
+    idx, d2 = [], []
+    for s in range(0, max(q.shape[1], 1), chunk):
+        m, a = torch.min(expanded_d2(q[:, s:s + chunk], qn2[:, s:s + chunk], t, tn2), dim=-1)
+        idx.append(a.to(torch.int32))
+        d2.append(m)
+    idx, d2 = torch.cat(idx, dim=1), torch.cat(d2, dim=1)
+    return (idx, d2) if batched else (idx[0], d2[0])
+
+
+def dense_nn_search(
+    queries: torch.Tensor, targets: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact 1-NN of each query over every target row, by the expansion
+    (the JAX package's ``nn_search_pallas``): ``(idx, d2)``, ties to the
+    lowest target row. ``queries`` (B, N, D), ``targets`` (B, M, D), or one
+    unbatched pair. A CUDA tensor launches ``csrc/dense_nn_search.cu`` (D =
+    3 or 6); a CPU tensor runs :func:`nn_search_xla`."""
+    if queries.device.type == "cpu":
+        return nn_search_xla(queries, targets)
+    batched, (q, t) = _batch_args(queries, targets)
+    d = _cuda.feature_dim("dense_nn_search", q.shape[-1])
+    q, t = q.float().contiguous(), t.float().contiguous()
+    b, n, m = q.shape[0], q.shape[1], t.shape[1]
+    chk = _cuda.check_cuda_tensor
+    chk("queries", q, torch.float32, (b, n, d))
+    chk("targets", t, torch.float32, (b, m, d))
+    d2 = torch.empty((b, n), dtype=torch.float32, device=q.device)
+    idx = torch.empty((b, n), dtype=torch.int32, device=q.device)
+    _cuda.launch("dense_nn_search", q, norm2(q), t, norm2(t), d2, idx, b, n, m, d)
+    return (idx, d2) if batched else (idx[0], d2[0])
+
+
+# The JAX package's nn_search dispatches on its backend; here the tensors'
+# device decides (a CUDA tensor launches the kernel).
+nn_search = dense_nn_search
+
+
+def match(
+    queries: torch.Tensor,
+    targets: torch.Tensor,
+    max_distance: float,
+    query_mask: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full matching stage: dense exact 1-NN + squared-distance threshold
+    (NearestNeighbor.h:182). Returns ``(indices, dist2, valid)``."""
+    idx, d2 = nn_search(queries, targets)
+    valid = d2 <= max_distance
+    if query_mask is not None:
+        valid = valid & query_mask
+    return idx, d2, valid
+
+
+def pruned_visit_mask(
+    queries: torch.Tensor, index: TargetIndex, bound_val: float, tile_q: int = TILE_Q
+) -> torch.Tensor:
+    """(B, ceil(N / tile_q), n_tiles) bool: whether the bbox of each
+    ``tile_q``-row query tile (zero-padded rows included, over
+    FEATURE_PAD columns) lies within ``bound_val`` of each target tile's
+    bbox, the squared gaps summed in column order (the JAX package's
+    ``nn_search_pruned`` visit mask)."""
+    q = _pad_rows(_pad_features(queries.float()), tile_q, 0.0)
+    tiles = q.reshape(q.shape[0], -1, tile_q, FEATURE_PAD)
+    qmin, qmax = torch.amin(tiles, dim=-2), torch.amax(tiles, dim=-2)
+    lb = None
+    for j in range(FEATURE_PAD):
+        gap = torch.clamp_min(torch.maximum(
+            qmin[:, :, None, j] - index.bbox_max[:, None, :, j],
+            index.bbox_min[:, None, :, j] - qmax[:, :, None, j]), 0.0)
+        lb = gap * gap if lb is None else lb + gap * gap
+    return lb <= bound_val
+
+
+def pruned_nn_search_plain(
+    q, t, visit, bound_val: float, *, tile_q: int, tile_t: int, chunk: int = 1024
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`pruned_nn_search`: :func:`expanded_d2` over
+    every target row, rows of tiles the visit mask skips set to +inf, then
+    the first minimum, kept only if strictly below ``bound_val``."""
+    b, n, d = q.shape
+    m = t.shape[1]
+    t = t[..., :d]
+    qn2, tn2 = norm2(q), norm2(t)
+    col_tile = torch.arange(m, device=q.device) // tile_t
+    best, idx = [], []
+    for s in range(0, max(n, 1), chunk):
+        e = min(s + chunk, n)
+        d2 = expanded_d2(q[:, s:e], qn2[:, s:e], t, tn2)
+        row_tile = torch.arange(s, e, device=q.device) // tile_q
+        vis = visit[:, row_tile][:, :, col_tile]
+        mn, a = torch.min(d2.masked_fill_(~vis, torch.inf), dim=-1)
+        better = mn < bound_val
+        best.append(torch.where(better, mn, bound_val))
+        idx.append(torch.where(better, a.to(torch.int32), -1))
+    return torch.cat(idx, dim=1), torch.cat(best, dim=1)
+
+
+def pruned_nn_search(
+    q: torch.Tensor,
+    t: torch.Tensor,
+    visit: torch.Tensor,
+    bound_val: float,
+    *,
+    tile_q: int,
+    tile_t: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact 1-NN strictly below ``bound_val`` over the target tiles that
+    ``visit`` (B, ceil(N / tile_q), ceil(M / tile_t)) lets each query tile
+    see, by the expansion. ``q`` (B, N, D); ``t`` (B, M, >= D), whose first
+    D columns are the features. Returns ``(idx, d2)``, (B, N) each: idx -1
+    (d2 = the bound) where nothing beats the bound; ties go to the lowest
+    target row. A CUDA tensor launches ``csrc/dense_nn_search.cu`` (D = 3
+    or 6, ``tile_q`` a multiple of 64); a CPU tensor runs
+    :func:`pruned_nn_search_plain`."""
+    if q.device.type == "cpu":
+        return pruned_nn_search_plain(q, t, visit, bound_val, tile_q=tile_q, tile_t=tile_t)
+    b, n = q.shape[0], q.shape[1]
+    d = _cuda.feature_dim("pruned_nn_search", q.shape[-1])
+    m, ts = t.shape[1], t.shape[-1]
+    nqt, n_tiles = -(-n // tile_q), -(-m // tile_t)
+    chk = _cuda.check_cuda_tensor
+    chk("q", q, torch.float32, (b, n, d))
+    chk("t", t, torch.float32, (b, m, ts))
+    chk("visit", visit, torch.bool, (b, nqt, n_tiles))
+    if ts < d:
+        raise ValueError(f"pruned_nn_search: targets have {ts} columns, queries {d}")
+    d2 = torch.empty((b, n), dtype=torch.float32, device=q.device)
+    idx = torch.empty((b, n), dtype=torch.int32, device=q.device)
+    _cuda.launch("pruned_nn_search", q, norm2(q), t, norm2(t[..., :d]).contiguous(), visit,
+                 bound_val, d2, idx, b, n, m, ts, tile_q, tile_t, d)
+    return idx, d2
+
+
+def nn_search_pruned(
+    queries: torch.Tensor,
+    index: TargetIndex,
+    max_distance: float,
+    *,
+    tile_q: int = TILE_Q,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Threshold-bounded exact 1-NN against a :class:`TargetIndex` (the
+    JAX package's ``nn_search_pruned``): ``(idx, d2)`` in ORIGINAL target
+    numbering, idx -1 and d2 = :func:`bound_value` where nothing lies
+    strictly below that bound among the target tiles whose bbox lies
+    within it of the query tile's (:func:`pruned_visit_mask`). The target
+    tile is the index's."""
+    batched, (q, index) = _batch_args(queries, index)
+    q = q.float().contiguous()
+    bv = bound_value(max_distance)
+    tile_t = index.points_t3.shape[-1]
+    visit = pruned_visit_mask(q, index, bv, tile_q)
+    sidx, d2 = pruned_nn_search(q, index.points, visit, bv, tile_q=tile_q, tile_t=tile_t)
+    orig = take_rows(index.perm, sidx.clamp(min=0))
+    idx = torch.where(sidx < 0, -1, orig)
+    return (idx, d2) if batched else (idx[0], d2[0])
+
+
+def nn_search_pruned_xla(
+    queries: torch.Tensor, index: TargetIndex, max_distance: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Portable equivalent of :func:`nn_search_pruned` (no pruning, the
+    same result contract; the JAX package's ``nn_search_pruned_xla``): the
+    dense plain search over the index's rows, rows past ``max_distance``
+    returned as -1 at :func:`bound_value`."""
+    batched, (q, index) = _batch_args(queries, index)
+    idx, d2 = nn_search_xla(q, index.points[..., :q.shape[-1]])
+    over = d2 > max_distance
+    orig = take_rows(index.perm, idx)
+    idx = torch.where(over, -1, orig)
+    d2 = torch.where(over, bound_value(max_distance), d2)
+    return (idx, d2) if batched else (idx[0], d2[0])
