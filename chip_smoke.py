@@ -8,7 +8,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, in order; any failure exits nonzero:
 
 1. Set-up: fail at once without a CUDA device; TF32 off for matmul and
-   cuDNN; the card's name and power limit; build the eight kernels from
+   cuDNN; the card's name and power limit; build the nine kernels from
    ``icp_variants_tpu_torch/csrc`` (nvcc, one per source in parallel) and
    print the time.
 2. ETH kernels (D = 3): each kernel against its plain PyTorch version at
@@ -94,11 +94,31 @@ Phases, in order; any failure exits nonzero:
    plain version and cKDTree; cached_block_search's pose mode at the
    colour checks16 arm's fine level (raw features, the warm-up's final
    poses) against its plain version and transform-then-search.
-8. The record: launches of each kernel on the main paths (the ETH, colour,
+8. Tooling: the measurement tools at full width. The fused stage profiler
+   (``profiling.fused_report``: the driver's ``stop_after`` probes, stage
+   differencing on the host's clock and on the card's kernel time, the
+   work model) on ETH pair 0 under the headline configuration, both arms,
+   3 repetitions; its report printed, the host stage sum held to at most
+   1.5 x the full run + 0.05 s and the matching stage's kernel time
+   above 0. TPU kernel 8, the visited-list ablation
+   (``scripts.knn_ablate``, kernel ``visited_ablate``) on the JAX
+   script's inputs (4,736 query slots of the 365,000-point cloud rotated
+   and moved, in 19 tiles of 256, against its 713 target tiles of 512,
+   chunk 8, squared bound 10): every mode against its plain version (the
+   exact modes bit for bit, dmaonly (bound, -1), default and high within
+   the order bound of their own plain version in d2 and idx, and within
+   their TF32 bounds of the exact result), full against cKDTree, every mode timed (median of
+   20) beside the production visited_search on the same queries. The kd
+   block search's probe decomposition (``scripts.resident_bench``) at the
+   ETH shapes (16 pairs x 4,736 queries, k = 4): box_topk, the probe and
+   the full search timed; the probe writes (binit, -1) on every row and the
+   full search equals its plain version.
+9. The record: launches of each kernel on the main paths (the ETH, colour,
    projective and dense arms, the profile path); fails unless each ran
    where its path needs it (pruned_nn_search and the pose mode, on no
-   pipeline path, count phase 7's direct calls, read from the wrappers'
-   counts).
+   pipeline path, count phase 7's direct calls, and the ablation kernel and
+   the block search's probe phase 8's checked calls, read from the
+   wrappers' counts).
 
 It prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
 power limit line, and as its last line ``{"ok": true, "device": {...}}``.
@@ -134,6 +154,8 @@ N_TIMED_RUNS = 5
 # cores, and HBM bandwidth. Every f32 operation counts as one here.
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
+# Dense TF32 tensor-core peak of the same card (data sheet).
+PEAK_TF32_OPS = 495e12
 # Mean translation error gates: 1 cm for a gross failure, and 0.01 mm,
 # set from the card's readings (about 0.0003 mm on both arms): a TF32 solve
 # or a matcher fault in a later iteration moves the error past it.
@@ -235,6 +257,14 @@ DENSE_PACKED_POINTS = 600_000
 # this path is warm against cold.
 DENSE_T_ERR_LIMIT_M = 0.025
 DENSE_R_ERR_LIMIT_DEG = 0.05
+
+# Phase 8: repetitions of each fused-profile run (after one warm-up), the
+# JAX ablation script's query slots and stratified draws, and the launches
+# each ablation mode and probe is timed over (median).
+FUSED_REPS = 3
+ABLATE_SLOTS = 4736
+ABLATE_DRAWS = 3651
+ABLATE_REPS = 20
 
 
 def synth_cloud(n, seed):
@@ -550,13 +580,16 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
-    rows_eth, launches_eth = eth_phase()
+    rows_eth, launches_eth, eth = eth_phase()
     rows_color, launches_color, colour = color_phase()
     rows_proj, launches_proj = projective_phase()
     rows_dense, launches_dense = dense_phase()
     rows_match, launches_match = matcher_phase(colour)
     del colour
-    record(rows_eth, launches_eth, {**rows_color, **rows_proj, **rows_dense, **rows_match},
+    rows_tool = tooling_phase(eth)
+    del eth
+    record(rows_eth, launches_eth,
+           {**rows_color, **rows_proj, **rows_dense, **rows_match, **rows_tool},
            collections.Counter(launches_color) + collections.Counter(launches_proj)
            + collections.Counter(launches_dense) + collections.Counter(launches_match))
     print(card)
@@ -568,7 +601,8 @@ def main() -> int:
 
 def eth_phase(n_pairs: int = BATCH_PAIRS, n_points: int = N_POINTS):
     """Phases 2-3 on the card with ``n_pairs`` pairs of ``n_points``
-    points; returns the kernel rows and the launches of the main-path runs.
+    points; returns the kernel rows, the launches of the main-path runs and
+    the path's data (sources, host targets, kd indexes) for phase 8.
     Raises :class:`Failure` on a failed check."""
     import torch
 
@@ -809,7 +843,7 @@ def eth_phase(n_pairs: int = BATCH_PAIRS, n_points: int = N_POINTS):
     check(launches["visited_search"] >= 1, "visited_search launched on the main path")
     print("  main path: " + json.dumps(arms))
 
-    return rows, launches
+    return rows, launches, dict(sources=sources, targets_host=targets_host, kd=kd)
 
 
 def timed_runs(runs):
@@ -2183,8 +2217,234 @@ def matcher_phase(colour):
     return rows, dict(launches)
 
 
+def ablation_queries():
+    """The JAX package's ``scripts/knn_ablate.main`` inputs, seeds included:
+    ``synth_cloud(N_POINTS, 0)`` as target and, rotated 0.05 rad about z and
+    moved by (0.5, -0.3, 0.1), as source, both in Morton order; ABLATE_SLOTS
+    query slots, the first ABLATE_DRAWS a stratified draw of source rows,
+    the rest copies of the first. Returns (queries, targets), numpy f32."""
+    from icp_variants_tpu_torch.ops import knn
+
+    src, _ = synth_cloud(N_POINTS, 0)
+    tgt, _ = synth_cloud(N_POINTS, 0)
+    ang = 0.05
+    R = np.array([[np.cos(ang), -np.sin(ang), 0], [np.sin(ang), np.cos(ang), 0], [0, 0, 1]],
+                 np.float32)
+    src = src @ R.T + np.array([0.5, -0.3, 0.1], np.float32)
+    src = src[np.argsort(knn.morton_codes_np(src))]
+    tgt = tgt[np.argsort(knn.morton_codes_np(tgt))]
+    cap = len(src)
+    rng = np.random.default_rng(0)
+    slots = np.arange(ABLATE_SLOTS)
+    starts = (slots * cap) // ABLATE_DRAWS
+    ends = ((slots + 1) * cap) // ABLATE_DRAWS
+    u = rng.random(ABLATE_SLOTS)
+    idx = np.minimum(starts + (u * np.maximum(ends - starts, 1)).astype(int), cap - 1)
+    q = src[idx]
+    q[ABLATE_DRAWS:] = q[0]
+    return q.astype(np.float32), tgt.astype(np.float32)
+
+
+def tooling_phase(eth):
+    """Phase 8 on the card: the measurement tools. ``eth`` is the ETH
+    phase's data. Returns the kernel rows of the ablation kernel and of the
+    block search's probe. Raises :class:`Failure` on a failed check."""
+    import torch
+
+    from icp_variants_tpu_torch.core import cloud as cloud_lib
+    from icp_variants_tpu_torch.ops import _cuda, kdtree, knn
+    from icp_variants_tpu_torch.pipeline import icp, profiling
+    from icp_variants_tpu_torch.pipeline.config import (
+        ICPConfig, Metric, Minimizer, Selection,
+    )
+    from icp_variants_tpu_torch.scripts import cuda_ms, knn_ablate, resident_bench
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    print("phase 8: tooling: the fused stage profiler, the visited-list ablation, the kd "
+          "block search's probe decomposition", flush=True)
+    rows = {}
+
+    # ---- the fused stage profiler on ETH pair 0, both arms -----------------
+    src0 = cloud_lib.Cloud(*(f[0] for f in eth["sources"]))
+    tgt0 = eth["targets_host"][0].to(dev)
+    kd0 = kdtree.KDIndex(*(None if f is None else f[0] for f in eth["kd"]))
+    fused = {}
+    for arm, checks in (("exact", 0), ("checks16", CHECKS_APPROX)):
+        cfg = ICPConfig(metric=Metric.SYMMETRIC, minimizer=Minimizer.LINEAR,
+                        selection=Selection.RANDOM, selection_proba=SELECTION_P,
+                        n_iterations=N_ITERATIONS, max_distance=MAX_DISTANCE,
+                        matching_checks=checks)
+        t0 = time.perf_counter()
+        rep = profiling.fused_report(cfg, src0, tgt0, repetitions=FUSED_REPS, kd_index=kd0,
+                                     device=dev)
+        print(f"  fused_report (ETH pair 0, {arm}; {time.perf_counter() - t0:.1f} s):")
+        for line in rep.text.splitlines():
+            print(f"    {line}")
+        times, dtimes = rep.host, rep.device
+        total = (times.selection + times.matching + times.weighting + times.rejection
+                 + times.solver + times.convergence)
+        check(total * times.n_iterations <= 1.5 * times.full_run + 0.05,
+              f"fused profile ({arm}): stage sum {total * 1e3:.3f} ms x {times.n_iterations} "
+              f"<= 1.5 x full run {times.full_run:.4f} s + 0.05 s")
+        # The host's clock cannot resolve the matching stage of one
+        # host-bound pair; the card's kernel time can.
+        check(dtimes is not None and dtimes.matching > 0,
+              f"fused profile ({arm}): the matching stage's kernel time > 0 "
+              f"({dtimes.matching * 1e3 if dtimes else float('nan'):.4f} ms per iteration)")
+        fused[arm] = {f"{where}_{k}": v for where, t in (("host", times), ("device", dtimes))
+                      for k, v in dict(
+                          floor_ms=t.overhead * 1e3, selection_ms=t.selection * 1e3,
+                          matching_ms=t.matching * 1e3, weighting_ms=t.weighting * 1e3,
+                          rejection_ms=t.rejection * 1e3, solver_ms=t.solver * 1e3,
+                          convergence_ms=t.convergence * 1e3, full_run_s=t.full_run).items()}
+        fused[arm]["n_iterations"] = times.n_iterations
+    print("  fused profile: " + json.dumps(fused))
+    del src0, tgt0, kd0
+
+    # ---- TPU kernel 8: the visited-list ablation ---------------------------
+    t0 = time.perf_counter()
+    q_np, t_np = ablation_queries()
+    inp = knn_ablate.ablate_inputs(torch.from_numpy(q_np).to(dev),
+                                   torch.from_numpy(t_np).to(dev), MAX_DISTANCE)
+    nqt, max_v = inp.vlist.shape
+    print(f"  ablation inputs: {len(q_np)} query slots in {nqt} tiles of "
+          f"{knn_ablate.TILE_Q}, {inp.pages.shape[0]} target tiles of {inp.tile_t}, chunk "
+          f"{inp.chunk}; chunks per query tile {inp.counts.tolist()}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    plain, runs, plain_ms = {}, {}, {}
+    for mode in knn_ablate.MODES:
+        start.record()
+        d2_p, idx_p, runs[mode] = knn_ablate._ablate_plain(inp, mode)
+        end.record()
+        end.synchronize()
+        plain[mode], plain_ms[mode] = (d2_p, idx_p), start.elapsed_time(end)
+    _cuda.reset_launches()
+    kern = {mode: knn_ablate.ablate_search(inp, mode) for mode in knn_ablate.MODES}
+    torch.cuda.synchronize()
+    direct = _cuda.LAUNCHES["visited_ablate"]
+    check(direct == len(knn_ablate.MODES),
+          f"visited_ablate: {len(knn_ablate.MODES)} checked calls launched the kernel {direct} "
+          "times")
+    full_d2, full_idx = plain["full"]
+    errs = {}
+    for mode, (d2, idx) in kern.items():
+        d2_p, idx_p = plain[mode]
+        if mode in ("default", "high"):
+            n_rows = inp.pages.shape[0] * inp.tile_t
+            worst, n_other = knn_ablate.tf32_check(inp, mode, (d2, idx), (d2_p, idx_p))
+            check(worst <= 1.0 and bool(((idx >= -1) & (idx < n_rows)).all()),
+                  f"visited_ablate {mode}: d2 and idx against its plain version within the "
+                  f"order bound (2^-17 S + 2^-22 qn2) on every row, worst {worst:.4f} of it; "
+                  f"{n_other} rows take another winner, each a tie within it")
+            e = torch.maximum(knn_ablate.tf32_error_bound(inp, mode, idx),
+                              knn_ablate.tf32_error_bound(inp, mode, full_idx))
+            gap = (d2 - full_d2).abs()
+            check(bool((gap <= e).all()),
+                  f"visited_ablate {mode}: d2 within the TF32 bound of the exact plain result on "
+                  f"every row (worst {float((gap / e.clamp(min=1e-30)).max()):.3f} of the bound)")
+            errs[mode] = float((d2 - d2_p).abs().max())
+            continue
+        check(torch.equal(d2, d2_p) and torch.equal(idx, idx_p),
+              f"visited_ablate {mode}: d2 and idx equal to plain on all {len(d2)} rows")
+        errs[mode] = float((d2 - d2_p).abs().max())
+    check(torch.equal(plain["maxonly"][0], full_d2) and bool((kern["maxonly"][1] == -1).all()),
+          "visited_ablate maxonly: full's d2, idx -1")
+    check(bool((kern["dmaonly"][0] == inp.bound).all() and (kern["dmaonly"][1] == -1).all()),
+          "visited_ablate dmaonly: (bound, -1) on every row")
+    n_real = len(t_np)
+    res = expansion_vs_ckdtree(q_np.astype(np.float64), t_np.astype(np.float64),
+                               np.arange(n_real), kern["full"][1][:len(q_np)].cpu().numpy(),
+                               kern["full"][0][:len(q_np)].cpu().numpy(), inp.bound)
+    check(res is not None,
+          f"visited_ablate full: found exactly where cKDTree's distance is below the bound "
+          f"beyond the rounding, each of its {len(q_np)} query slots within it")
+    ms = knn_ablate.ablate(inp, reps=ABLATE_REPS)
+    modes = {}
+    for mode in knn_ablate.MODES:
+        nbytes, nops, kind = knn_ablate.ablate_work(inp, mode, runs[mode])
+        peak = PEAK_TF32_OPS if kind == "tf32" else PEAK_F32_OPS
+        t_b, t_o = nbytes / PEAK_BYTES * 1e3, nops / peak * 1e3
+        modes[mode] = dict(ms=ms[mode], plain_ms=plain_ms[mode], bound_ms=max(t_b, t_o),
+                           bound_by="bytes" if t_b >= t_o else "operations",
+                           max_abs_err=errs[mode], chunks_run=int(runs[mode].sum()))
+        print(f"  visited_ablate {mode:8s}: kernel {ms[mode]:.4f} ms, plain "
+              f"{plain_ms[mode]:.4f} ms, bound {modes[mode]['bound_ms']:.5f} ms "
+              f"({modes[mode]['bound_by']}, {kind}), {modes[mode]['chunks_run']} chunks scored",
+              flush=True)
+    # The production fallback kernel on the same queries at the same bound.
+    q_dev = torch.from_numpy(q_np).to(dev)[None].contiguous()
+    fidx = knn.build_target_index(torch.from_numpy(t_np).to(dev)[None], tile_t=knn.V2_TILE_T)
+    radius = torch.full(q_dev.shape[:2], inp.bound, device=dev)
+    vd, _vi = knn.visited_search(q_dev, radius, fidx)
+    prod_ms = cuda_ms(lambda: knn.visited_search(q_dev, radius, fidx), ABLATE_REPS)
+    same = float((vd[0] == kern["direct"][0][:len(q_np)]).float().mean())
+    print(f"  visited_search (production, {knn.V2_TILE_T}-row tiles) on the same queries: "
+          f"{prod_ms:.4f} ms; d2 equal to the direct mode's on {same:.4f} of the rows",
+          flush=True)
+    rows["visited_ablate"] = dict(
+        modes=modes, direct_launches=direct, visited_search_ms=prod_ms,
+        shapes=f"{len(q_np)} query slots ({nqt} tiles of {knn_ablate.TILE_Q}) against "
+               f"{n_real} targets ({inp.pages.shape[0]} tiles of {inp.tile_t}), chunk "
+               f"{inp.chunk}, squared bound {MAX_DISTANCE:g}",
+        plain_on="all query tiles side by side, chunk by chunk")
+    del inp, kern, plain, q_dev, fidx
+    torch.cuda.empty_cache()
+
+    # ---- TPU kernel 2's probe: resident_bench.probe_decomp ------------------
+    kd = eth["kd"]
+    pts = eth["sources"].points.cpu().numpy()
+    ok = eth["sources"].valid.cpu().numpy()
+    q = torch.from_numpy(resident_bench.probe_queries(pts, ok)).to(dev)
+    dec = resident_bench.probe_decomp(kd, q, MAX_DISTANCE, reps=ABLATE_REPS)
+    b, n = q.shape[:2]
+    _cuda.reset_launches()
+    pd2, pidx = kdtree.kd_block_search(q, dec["sel"], dec["binit"], kd.pages, probe=1)
+    probe_launches = _cuda.LAUNCHES["kd_block_search"]
+    p_plain = kdtree.kd_block_search_plain(q, dec["sel"], dec["binit"], kd.pages, probe=1)
+    check(probe_launches == 1 and torch.equal(pd2, dec["binit"]) and bool((pidx == -1).all())
+          and torch.equal(pd2, p_plain[0]) and torch.equal(pidx, p_plain[1])
+          and torch.equal(dec["probe"][0], pd2) and torch.equal(dec["probe"][1], pidx),
+          f"kd_block_search probe=1: one launch, (binit, -1) on all {b} x {n} rows, equal to "
+          "plain")
+    start.record()
+    want = kdtree.kd_block_search_plain(q, dec["sel"], dec["binit"], kd.pages)
+    end.record()
+    end.synchronize()
+    full_plain_ms = start.elapsed_time(end)
+    check(torch.equal(dec["full"][0], want[0]), "kd_block_search (probe_decomp's full launch): "
+                                               "d2 equal to plain")
+    _tie_or_equal(dec["full"][1], want[1], dec["full"][0], q, kd.pages,
+                  "kd_block_search (probe_decomp's full launch)")
+    probe_plain_ms = cuda_ms(lambda: kdtree.kd_block_search_plain(
+        q, dec["sel"], dec["binit"], kd.pages, probe=1), ABLATE_REPS)
+    sel = dec["sel"]
+    members = sel >= 0
+    used = torch.zeros((b, kd.pages.shape[1]), dtype=torch.bool, device=dev)
+    bi = torch.arange(b, device=dev)[:, None, None].expand_as(sel)
+    used[bi[members], sel[members].long()] = True
+    block_real = (kd.block_orig >= 0).sum(-1)
+    staged_bytes = int(block_real[used].sum()) * 3 * 4
+    probe_bound = bound(b * n * (3 + 4 + 1 + 2) * 4 + staged_bytes, 0)
+    rows["kd_block_search_probe"] = dict(
+        ms=dec["staging_ms"], plain_ms=probe_plain_ms, bound=probe_bound,
+        err=float((pd2 - p_plain[0]).abs().max()), launches=probe_launches,
+        prefix_ms=dec["prefix_ms"],
+        staging_ms=dec["staging_ms"], distance_ms=dec["distance_ms"], full_ms=dec["full_ms"],
+        full_plain_ms=full_plain_ms,
+        shapes=f"{b} pairs x {n} queries (the JAX script's draw), k = 4, bound "
+               f"{MAX_DISTANCE:g}, {kd.pages.shape[1]} blocks of {kd.pages.shape[-1]}")
+    print(f"  probe_decomp ({b} x {n} queries): box_topk {dec['prefix_ms']:.4f} ms, "
+          f"kd_block_search probe {dec['staging_ms']:.4f} ms (staging), full "
+          f"{dec['full_ms']:.4f} ms (distance {dec['distance_ms']:.4f} ms); probe bound "
+          f"{probe_bound[0]:.5f} ms ({probe_bound[1]}), plain probe {probe_plain_ms:.4f} ms",
+          flush=True)
+    return rows
+
+
 def record(rows_eth, launches_eth, rows, launches) -> None:
-    """Phase 8: the kernels line. Each kd kernel's time, bound and plain
+    """Phase 9: the kernels line. Each kd kernel's time, bound and plain
     time are at the colour path's full shapes (D = 6; the plain version in
     windows of rows, visited_search's on the live rows only), its ETH
     numbers (D = 3, full shapes) under ``eth``; the projective window
@@ -2195,11 +2455,15 @@ def record(rows_eth, launches_eth, rows, launches) -> None:
     colour frame under ``colour``; pruned_nn_search's on ETH pair 0's
     selected queries at max_distance 10, at 0.01 under ``tight`` and on the
     colour frame under ``colour``; cached_block_search's pose mode under
-    ``transform_pose``. Launches are summed over every path's main runs
+    ``transform_pose``; kd_block_search's probe (at the ETH probe
+    decomposition's shapes) under ``probe``; visited_ablate's at the JAX
+    ablation script's shapes, the full mode's at the top and every mode's
+    under ``modes``. Launches are summed over every path's main runs
     (dense_nn_search's on the profile path); pruned_nn_search and the pose
     mode run on no pipeline path, and their launches are phase 7's direct
-    calls, read from the wrappers' counts."""
-    print("phase 8: the record", flush=True)
+    calls, read from the wrappers' counts, as are phase 8's for the
+    ablation kernel and the probe."""
+    print("phase 9: the record", flush=True)
     sources_of = {
         "box_topk": ("icp_variants_tpu_torch/csrc/box_topk.cu",
                      "icp_variants_tpu/ops/kdtree.py:501"),
@@ -2218,10 +2482,29 @@ def record(rows_eth, launches_eth, rows, launches) -> None:
                             "icp_variants_tpu/ops/knn.py:120"),
         "pruned_nn_search": ("icp_variants_tpu_torch/csrc/dense_nn_search.cu",
                              "icp_variants_tpu/ops/knn.py:360"),
+        "visited_ablate": ("icp_variants_tpu_torch/csrc/visited_ablate.cu",
+                           "scripts/knn_ablate.py:37 (pallas_call at :210)"),
     }
     kernels = []
     for name, (src, replaces) in sources_of.items():
         c, e = rows[name], rows_eth.get(name)
+        if name == "visited_ablate":
+            # TPU kernel 8 is a measurement aid: its count is phase 8's calls,
+            # and its headline numbers are the full mode's.
+            n_launch = c["direct_launches"]
+            check(n_launch > 0, f"{name}: launched {n_launch} times by phase 8's checked calls "
+                                "(no pipeline path runs it)")
+            full = c["modes"]["full"]
+            kernels.append(dict(
+                name=name, route="cuda", source=src, replaces=replaces, launches=n_launch,
+                launches_on="phase 8's checked calls, one per mode: no pipeline path runs "
+                            "the ablation",
+                max_abs_err=max(m["max_abs_err"] for m in c["modes"].values()),
+                ms=full["ms"], plain_ms=full["plain_ms"], bound_ms=full["bound_ms"],
+                bound_by=full["bound_by"], library_ms=None, shapes=c["shapes"],
+                plain_on=c["plain_on"], modes=c["modes"],
+                visited_search_ms=c["visited_search_ms"]))
+            continue
         if name == "pruned_nn_search":
             # TPU kernel 7 is on no pipeline path: its count is the phase's calls.
             n_launch = c["direct_launches"]
@@ -2274,6 +2557,16 @@ def record(rows_eth, launches_eth, rows, launches) -> None:
             entry["packed"] = dict(ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound"][0],
                                    bound_by=p["bound"][1], max_abs_err=p["err"],
                                    shapes=p["shapes"])
+            p = rows["kd_block_search_probe"]
+            check(p["launches"] > 0, f"kd_block_search probe: launched {p['launches']} times "
+                                     "by phase 8's probe_decomp")
+            entry["probe"] = dict(
+                ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound"][0],
+                bound_by=p["bound"][1], max_abs_err=p["err"], launches=p["launches"],
+                launches_on="phase 8's checked probe call: no pipeline path runs the probe",
+                prefix_ms=p["prefix_ms"], staging_ms=p["staging_ms"],
+                distance_ms=p["distance_ms"], full_ms=p["full_ms"],
+                full_plain_ms=p["full_plain_ms"], shapes=p["shapes"])
         if e is not None:
             entry["eth"] = dict(ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound"][0],
                                 bound_by=e["bound"][1], max_abs_err=e["err"],

@@ -65,6 +65,10 @@ __device__ __forceinline__ float icp_diff2(float t, float x) {
 // and sum rounded on its own (core/se3.transform_points' order); the other
 // features pass through.
 //
+// With PROBE (kd_block_search's measurement probe) each gate still lists
+// and stages its blocks but runs no distance loop: every row writes its
+// start and -1.
+//
 // Semantics: best = binit (the row's entry of `binit`, or `binit_value`
 // when `binit` is null), idx = -1; over the row's picks in order (ids < 0
 // are no pick; ids past nc - 1 are clipped to nc - 1) and their slots in
@@ -79,7 +83,7 @@ __device__ __forceinline__ float icp_diff2(float t, float x) {
 #define ICP_GATE 32
 #define ICP_PARTS 4
 
-template <int D>
+template <int D, bool PROBE = false>
 __device__ __forceinline__ void icp_gate_block_search(
     const float* __restrict__ q, const float* __restrict__ pose, const int32_t* __restrict__ sel,
     const float* __restrict__ binit, float binit_value, const float* __restrict__ pages,
@@ -145,7 +149,7 @@ __device__ __forceinline__ void icp_gate_block_search(
     __syncthreads();  // the previous block is no longer read
     for (int i = threadIdx.x; i < n4; i += blockDim.x) tile4[i] = src[i];
     __syncthreads();
-    if (!live) continue;
+    if (PROBE || !live) continue;
     int pos = -1;
     for (int p = k - 1; p >= 0; --p)
       if (s_sel[lane * k + p] == blk) pos = p;

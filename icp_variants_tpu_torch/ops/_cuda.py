@@ -46,12 +46,13 @@ KERNEL_DIMS = (3, 6)
 # kernel name -> (source file, C function, ctypes argtypes); every C
 # function ends with (..., void* stream), and all but
 # projective_window_search (geometry only) with (..., int D, void* stream).
-# dense_nn_search and pruned_nn_search are two entries of one source.
+# dense_nn_search and pruned_nn_search are two entries of one source;
+# visited_ablate is the measurement kernel of scripts/knn_ablate.py.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "box_topk": ("box_topk.cu", "box_topk_launch", [_P] * 6 + [_I] * 5 + [_P]),
     "kd_block_search": (
-        "kd_block_search.cu", "kd_block_search_launch", [_P] * 6 + [_I] * 6 + [_P]),
+        "kd_block_search.cu", "kd_block_search_launch", [_P] * 6 + [_I] * 7 + [_P]),
     "visited_search": (
         "visited_search.cu", "visited_search_launch", [_P] * 7 + [_I] * 5 + [_P]),
     "cached_block_search": (
@@ -67,6 +68,9 @@ KERNELS = {
     "pruned_nn_search": (
         "dense_nn_search.cu", "pruned_nn_search_launch",
         [_P] * 5 + [_F] + [_P] * 2 + [_I] * 7 + [_P]),
+    "visited_ablate": (
+        "visited_ablate.cu", "visited_ablate_launch",
+        [_P] * 6 + [_F] + [_P] * 2 + [_I] * 6 + [_P]),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

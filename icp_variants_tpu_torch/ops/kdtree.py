@@ -50,6 +50,11 @@ from icp_variants_tpu_torch.ops import _cuda, knn
 LEAF_PAD = 1.0e9
 # Default top-k block count of the exact arm.
 K_DEFAULT = 4
+# The JAX package's query tile of its kd prefix and search kernels, and the
+# query tiles per prefix step (its rows are padded to the product). The port
+# reads them only to model that work (pipeline/profiling.py).
+TILE_Q_DEFAULT = 128
+_PREFIX_GROUP = 8
 # Points per block at full occupancy (the JAX package's defaults, so both
 # packages partition a cloud into the same blocks).
 BLOCK_TARGET = 3072
@@ -271,9 +276,12 @@ def box_topk(
 # ---------------------------------------------------------------------------
 
 
-def kd_block_search_plain(q, sel, binit, pages):
+def kd_block_search_plain(q, sel, binit, pages, probe: int = 0):
     """Plain version of :func:`kd_block_search`: gather each query's k
-    blocks and take the first minimum in (sel position, slot) order."""
+    blocks and take the first minimum in (sel position, slot) order; with
+    ``probe`` >= 1, ``(binit, -1)``."""
+    if probe:
+        return binit.clone(), torch.full(binit.shape, -1, dtype=torch.int32, device=q.device)
     b, n, d = q.shape
     k = sel.shape[-1]
     cap_pad = pages.shape[-1]
@@ -292,7 +300,8 @@ def kd_block_search_plain(q, sel, binit, pages):
 
 
 def kd_block_search(
-    q: torch.Tensor, sel: torch.Tensor, binit: torch.Tensor, pages: torch.Tensor
+    q: torch.Tensor, sel: torch.Tensor, binit: torch.Tensor, pages: torch.Tensor,
+    probe: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact 1-NN of each query among the points of its own blocks.
 
@@ -304,9 +313,17 @@ def kd_block_search(
     page index ``block * cap_pad + slot`` (-1 if nothing beat ``binit``,
     and d2 is then ``binit``). A CUDA tensor launches
     ``csrc/kd_block_search.cu`` (D = 3 or 6, from ``q``); a CPU tensor runs
-    :func:`kd_block_search_plain`."""
+    :func:`kd_block_search_plain`.
+
+    ``probe`` 1 or 2 (a measurement aid, the JAX package's resident-kernel
+    probe): each gate still lists and stages its blocks but computes no
+    distance, and every row returns ``(binit, -1)``, not a match. As in the
+    JAX package, whose probe zeroes every gate's member count
+    (``knn.py:1467``), both values do the same."""
+    if probe not in (0, 1, 2):
+        raise ValueError(f"kd_block_search: probe must be 0, 1 or 2, got {probe}")
     if q.device.type == "cpu":
-        return kd_block_search_plain(q, sel, binit, pages)
+        return kd_block_search_plain(q, sel, binit, pages, probe)
     b, n = q.shape[0], q.shape[1]
     d = _cuda.feature_dim("kd_block_search", q.shape[-1])
     k = sel.shape[-1]
@@ -318,7 +335,8 @@ def kd_block_search(
     chk("pages", pages, torch.float32, (b, nc, 8, cap_pad))
     d2 = torch.empty((b, n), dtype=torch.float32, device=q.device)
     idx = torch.empty((b, n), dtype=torch.int32, device=q.device)
-    _cuda.launch("kd_block_search", q, sel, binit, pages, d2, idx, b, n, nc, cap_pad, k, d)
+    _cuda.launch("kd_block_search", q, sel, binit, pages, d2, idx, b, n, nc, cap_pad, k,
+                 int(probe > 0), d)
     return d2, idx
 
 

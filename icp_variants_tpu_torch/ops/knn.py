@@ -2,7 +2,9 @@
 
 PyTorch port of ``icp_variants_tpu.ops.knn``: the host-side Morton orders
 (3-dim and the 6-dim colour order), the tile-bbox :class:`TargetIndex`, the
-visited-list search that serves the exact arm's fallback, the JAX
+visited-list search that serves the exact arm's fallback (and the JAX
+package's lb-sorted visit lists, :func:`_visit_lists`, which the ablation
+tool and the profiler's work model read), the JAX
 package's resident-table rule (:func:`resident_fits`), the per-query radius
 search over kd blocks that serves tables past that rule, and the dense and
 tile-pruned matchers behind ``knn.match`` / ``nn_search`` and
@@ -202,6 +204,59 @@ def box_lb(q: torch.Tensor, bmin: torch.Tensor, bmax: torch.Tensor) -> torch.Ten
             torch.maximum(bmin[:, None, :, j] - qj, qj - bmax[:, None, :, j]), 0.0)
         lb = gap * gap if lb is None else lb + gap * gap
     return lb
+
+
+# Suffix-list fill past a tile's visit count: above any real squared bound,
+# finite in f32.
+_LB_PAD = 1.0e30
+# Bins of the visit lists' counting sort, on the sqrt scale of lb / bound.
+_VISIT_BINS = 8
+
+
+def _visit_lists(qmin, qmax, bbox_min, bbox_max, bound_val):
+    """Per query tile, the target tiles it visits, in the JAX package's
+    ``_visit_lists`` order. ``qmin`` / ``qmax`` (nqt, F) are the query
+    tiles' boxes, ``bbox_min`` / ``bbox_max`` (ntt, F) the target tiles';
+    a tile is visited when its squared box gap (summed in column order)
+    is <= ``bound_val``, a scalar or a per-query-tile (nqt,) tensor
+    (negative = an empty list). Returns :func:`_visit_lists_from`'s four
+    lists."""
+    lb = None
+    for j in range(qmin.shape[-1]):
+        gap = torch.clamp_min(torch.maximum(qmin[:, None, j] - bbox_max[None, :, j],
+                                            bbox_min[None, :, j] - qmax[:, None, j]), 0.0)
+        lb = gap * gap if lb is None else lb + gap * gap
+    bound = torch.as_tensor(bound_val, dtype=torch.float32, device=lb.device)
+    bound = bound.expand(lb.shape[:1])[:, None]
+    return _visit_lists_from(lb, lb <= bound, bound)
+
+
+def _visit_lists_from(lb, visited, bound_val):
+    """Visit lists from the (nqt, ntt) lower bounds ``lb``, membership
+    ``visited`` and (nqt, 1) bounds: ``(vlist, suffix, counts, counts0)``.
+
+    Each row of ``vlist`` (nqt, ntt) int32 lists the visited tile ids by
+    the JAX package's 8-bin counting sort: bin ``min(floor(8 sqrt(lb /
+    max(bound, 1e-30))), 7)``, then ascending tile id within a bin (the
+    counting sort is stable, so a stable sort on (bin, id) gives the same
+    list); positions past the count hold tile 0. ``suffix`` (nqt, ntt) is
+    the suffix minimum of the listed lower bounds (:data:`_LB_PAD` past the
+    count), ``counts`` the visit counts and ``counts0`` the visited tiles
+    of bin 0."""
+    nqt, ntt = visited.shape
+    scale = torch.sqrt(torch.clamp_min(lb, 0.0) / torch.clamp_min(bound_val, 1e-30))
+    # Clamped in f32 before the cast: JAX's conversion saturates, torch's wraps.
+    binid = torch.clamp(scale * _VISIT_BINS, 0, _VISIT_BINS - 1).to(torch.int64)
+    cols = torch.arange(ntt, device=lb.device)
+    key = torch.where(visited, binid * ntt + cols, _VISIT_BINS * ntt + cols)
+    order = torch.sort(key, dim=1, stable=True).indices
+    counts = visited.sum(1).to(torch.int32)
+    listed = cols[None, :] < counts[:, None]
+    vlist = torch.where(listed, order, 0).to(torch.int32)
+    lblist = torch.where(listed, torch.gather(lb, 1, order), _LB_PAD)
+    suffix = torch.flip(torch.cummin(torch.flip(lblist, [1]), dim=1).values, [1])
+    counts0 = (visited & (binid == 0)).sum(1).to(torch.int32)
+    return vlist, suffix, counts, counts0
 
 
 def visited_search_plain(

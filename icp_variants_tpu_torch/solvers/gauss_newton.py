@@ -57,7 +57,7 @@ def _residual_fn(metric: Metric):
     if metric == Metric.GICP:
         raise NotImplementedError(
             "GICP through LM needs linear.gicp_whitener, not ported yet: "
-            "ROADMAP.md queue 1 item 6")
+            "ROADMAP.md queue 1 item 1")
 
     def residuals(x: torch.Tensor, d: _Residuals) -> torch.Tensor:
         moved = se3.apply_increment(x, d.src)
