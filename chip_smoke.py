@@ -15,6 +15,9 @@ Phases, in order; any failure exits nonzero:
    the ETH path's shapes (16 pairs x 4,352 queries on 365,056-point
    targets), plus the fallback search and the exact-arm matcher against
    scipy's cKDTree. Median times of kernel and plain version, CUDA events.
+   kd_block_search's lane use at k = 4 from its measurement build
+   (``resident_bench.lane_use``; that build's result equal to the
+   production one's).
 3. The ETH path: ``run_icp_batch`` on the ETH headline configuration
    (symmetric linear ICP, p = 0.01 Bernoulli selection, max squared
    distance 10, 50 iterations) over 16 synthetic pairs of 365,000 points,
@@ -37,7 +40,8 @@ Phases, in order; any failure exits nonzero:
    full fine-level shapes, 8 x 307,200 rows at the warm-up's final poses
    (-1 rows included; the plain versions in windows of rows;
    visited_search at the exact arm's real fallback radii, and all rows live
-   on a subset), each timed there; then timed runs in turns (median
+   on a subset), each timed there, kd_block_search's lane use read as in
+   phase 2; then timed runs in turns (median
    frames/s, launches on each arm's first), one profiled run per arm, the
    mean translation / rotation error against the known camera shifts
    (gated at 1 cm and at a tighter gate set from the card's readings), the
@@ -73,7 +77,9 @@ Phases, in order; any failure exits nonzero:
    matcher's route through box_topk + kd_radius_search. One warm-up run,
    one cold run (``kd_warm_start=False``) that the warm runs must equal
    (match counts per iteration, poses within rtol 1e-4 / atol 1e-5), 5
-   timed warm runs (median pairs/s) and a profiled one; kd_radius_search
+   timed warm runs (median pairs/s) and a profiled one; box_topk (512
+   blocks, k = 4) against its plain version on every row at the first
+   iteration's radii, and timed there; kd_radius_search
    against its plain version on every row at the first iteration's radii
    and at the final pose's cached radii (k = 4) and on pair 0 at k = 0;
    pair 0's warm matcher at its final pose against cKDTree on all rows; the
@@ -421,10 +427,14 @@ def profile_run(fn, wall_s: float, top: int = 8) -> dict:
     total kernel time, kernel launches, the ``top`` kernel names by time
     (names cut to 90 characters, times of equal cut names summed), and
     the device busy share = kernel time / ``wall_s`` (the unprofiled run's
-    wall time; the profiler slows the host, not the kernels)."""
+    wall time; the profiler slows the host, not the kernels), and each of
+    the port's kernels' time summed over every ``__global__`` whose name
+    holds the kernel's name (kd_block_search launches five)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from icp_variants_tpu_torch.ops import _cuda
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
@@ -433,14 +443,18 @@ def profile_run(fn, wall_s: float, top: int = 8) -> dict:
     total_us = sum(e.self_device_time_total for e in kernels)
     if total_us <= 0:
         return {"device_ms": "not measured"}
-    by_name = collections.Counter()
+    by_name, by_port = collections.Counter(), collections.Counter()
     for e in kernels:
         by_name[e.key[:90]] += e.self_device_time_total / 1e3
+        for name in _cuda.KERNELS:
+            if name in e.key:
+                by_port[name] += e.self_device_time_total / 1e3
     return {
         "device_ms": total_us / 1e3,
         "device_busy_share": total_us / 1e6 / wall_s,
         "kernel_launches": int(sum(e.count for e in kernels)),
         "device_ms_by_kernel": dict(by_name.most_common(top)),
+        "device_ms_by_port_kernel": dict(by_port),
     }
 
 
@@ -578,7 +592,7 @@ def main() -> int:
           "sources in parallel)")
     for name, log in _cuda.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
     rows_eth, launches_eth, eth = eth_phase()
     rows_color, launches_color, colour = color_phase()
@@ -694,6 +708,7 @@ def eth_phase(n_pairs: int = BATCH_PAIRS, n_points: int = N_POINTS):
             print(f"  k=4: {n_member} member blocks over {b * n} queries "
                   f"({member_pts} real points searched), {distinct} distinct "
                   f"(pair, block) pages")
+            lane_reading("ETH k=4", q, sel_k, binit, kd.pages)
 
     fidx = knn.build_target_index(targets.points, tile_t=knn.V2_TILE_T)
     n_tiles, tile_t = fidx.points_t3.shape[1], fidx.points_t3.shape[-1]
@@ -874,6 +889,21 @@ def timed_runs(runs):
     return walls, issues, counts, results
 
 
+def lane_reading(label, q, sel, binit, pages):
+    """Print kd_block_search's lane use on these operands, read from its
+    measurement build (``resident_bench.lane_use``), and check that build's
+    result equal to the production one's."""
+    from icp_variants_tpu_torch.scripts import resident_bench
+
+    r = resident_bench.lane_use(q, sel, binit, pages)
+    colour = ("" if r["colour"] is None else
+              f", colour terms {r['colour']:.4f} over {r['colour_steps']} warp steps")
+    print(f"  kd_block_search lanes, {label} (active / 32, measurement build): spatial "
+          f"{r['spatial']:.4f} over {r['spatial_steps']} warp steps{colour}", flush=True)
+    check(r["equal"], f"kd_block_search, {label}: the lane-counting build's result equal to "
+          "the production build's")
+
+
 def _tie_or_equal(idx_k, idx_p, d2_k, q, pages, what):
     """Kernel and plain indices into ``pages`` agree, or differ only where
     the kernel's point lies at exactly the kernel's reported distance."""
@@ -997,6 +1027,7 @@ def color_phase():
                             member_pts * 3 * d))
             print(f"  kd_block_search k=4: {int(members.sum())} member blocks, "
                   f"{member_pts} real points searched, {int(used.sum())} distinct (frame, block)")
+            lane_reading("colour exact k=4", q_, sel, b_full, kd_.pages)
             del members, bi
         del sel, res, sel_p, res_p, d2, idx, d2_p, idx_p
         torch.cuda.empty_cache()
@@ -1810,7 +1841,29 @@ def dense_phase():
     for label, q, r in (("first iteration's radii (the bound)", q0, torch.where(mask, bv, -1.0)),
                         ("final pose's cached radii", qf, cached_r)):
         binit = torch.clamp(r, max=bv).contiguous()
-        sel = kdtree.box_topk(q, binit, kd.block_min, kd.block_max, 4)[0]
+        sel, resid = kdtree.box_topk(q, binit, kd.block_min, kd.block_max, 4)
+        if label.startswith("first"):
+            # box_topk at the dense path's shapes: the first warm iteration's
+            # queries and radii (an empty cache: the bound, -1 on masked rows).
+            (sel_p, resid_p), box_plain_ms = plain_pass(
+                lambda s, e: kdtree.box_topk_plain(q[:, s:e], binit[:, s:e], kd.block_min,
+                                                   kd.block_max, 4), cap)
+            check(torch.equal(sel, sel_p) and torch.equal(resid, resid_p),
+                  f"box_topk k=4 at the {label} ({nc} blocks, all {b} x {cap} rows): sel and "
+                  "resid equal to plain")
+            box_row = dict(
+                err=float((resid - resid_p).abs().nan_to_num(0.0).max()),
+                ms=time_ms(lambda: kdtree.box_topk(q, binit, kd.block_min, kd.block_max, 4), 20),
+                plain_ms=box_plain_ms,
+                bound=bound(b * cap * (3 + 1 + 4 + 1) * 4 + b * nc * 3 * 2 * 4,
+                            b * cap * nc * (6 * 3 - 1 + 4 + 1)),
+                shapes=f"{b} x {cap} rows (D = 3), k = 4, {nc} blocks, the {label}",
+                plain_on=f"the same rows, in windows of {PLAIN_CHUNK_ROWS}")
+            print(f"  box_topk k=4 at the {label}: kernel {box_row['ms']:.4f} ms, plain "
+                  f"{box_plain_ms:.4f} ms, bound {box_row['bound'][0]:.5f} ms "
+                  f"({box_row['bound'][1]})", flush=True)
+            del sel_p, resid_p
+        del resid
         d2, idx = knn.kd_radius_search(q, binit, *boxes, sel)
         (d2_p, idx_p), plain_ms = plain_pass(
             lambda s, e: knn.kd_radius_search_plain(q[:, s:e], binit[:, s:e], *boxes,
@@ -1928,7 +1981,8 @@ def dense_phase():
           f"dense: mean t_err <= {DENSE_T_ERR_LIMIT_M * 1e3:g} mm")
     check(arm["r_err_deg"] <= DENSE_R_ERR_LIMIT_DEG,
           f"dense: mean r_err <= {DENSE_R_ERR_LIMIT_DEG:g} deg")
-    return {"kd_radius_search": row, "kd_block_search_packed": packed}, dict(launches)
+    return ({"kd_radius_search": row, "kd_block_search_packed": packed, "box_topk_dense": box_row},
+            dict(launches))
 
 
 def expansion_tol(q, t, d):
@@ -2450,7 +2504,8 @@ def record(rows_eth, launches_eth, rows, launches) -> None:
     numbers (D = 3, full shapes) under ``eth``; the projective window
     search's at the projective path's; kd_radius_search's at the dense
     path's (D = 3), its colour reading (D = 6, k = 0) under ``colour``, and
-    kd_block_search's on the packed-size pair under ``packed``;
+    kd_block_search's on the packed-size pair under ``packed``; box_topk's
+    at the dense path's shapes (512 blocks) under ``dense``;
     dense_nn_search's at the ETH width as the profiler feeds it (D = 3), its
     colour frame under ``colour``; pruned_nn_search's on ETH pair 0's
     selected queries at max_distance 10, at 0.01 under ``tight`` and on the
@@ -2567,6 +2622,12 @@ def record(rows_eth, launches_eth, rows, launches) -> None:
                 prefix_ms=p["prefix_ms"], staging_ms=p["staging_ms"],
                 distance_ms=p["distance_ms"], full_ms=p["full_ms"],
                 full_plain_ms=p["full_plain_ms"], shapes=p["shapes"])
+        if name == "box_topk":
+            p = rows["box_topk_dense"]
+            entry["max_abs_err"] = max(entry["max_abs_err"], p["err"])
+            entry["dense"] = dict(ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound"][0],
+                                  bound_by=p["bound"][1], max_abs_err=p["err"],
+                                  shapes=p["shapes"], plain_on=p["plain_on"])
         if e is not None:
             entry["eth"] = dict(ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound"][0],
                                 bound_by=e["bound"][1], max_abs_err=e["err"],

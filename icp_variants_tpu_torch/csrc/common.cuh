@@ -45,8 +45,9 @@ __device__ __forceinline__ float icp_diff2(float t, float x) {
 }
 
 // ---------------------------------------------------------------------------
-// Gate block search, shared by kd_block_search (k picks per query) and
-// cached_block_search (one cached block per query).
+// Gate block search of cached_block_search (one cached block per query;
+// written for k picks per query, the kd block search's layout before it went
+// block-major in csrc/kd_block_search.cu).
 //
 // One CTA of ICP_GATE * ICP_PARTS threads serves a gate of ICP_GATE
 // consecutive query rows of pair b. Thread t serves row t % ICP_GATE over
@@ -65,7 +66,8 @@ __device__ __forceinline__ float icp_diff2(float t, float x) {
 // and sum rounded on its own (core/se3.transform_points' order); the other
 // features pass through.
 //
-// With PROBE (kd_block_search's measurement probe) each gate still lists
+// With PROBE (a staging-only measurement mode, the kd block search's probe
+// before its redesign; no kernel instantiates it now) each gate still lists
 // and stages its blocks but runs no distance loop: every row writes its
 // start and -1.
 //

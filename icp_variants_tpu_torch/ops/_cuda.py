@@ -10,7 +10,9 @@ of the source and flags so a changed source rebuilds.
 Every C entry point takes device pointers, sizes and the CUDA stream, and
 returns the ``cudaError_t`` of ``cudaGetLastError()`` after its launch;
 :func:`launch` raises on anything but 0. :data:`LAUNCHES` counts the
-launches per kernel name.
+launches per kernel name. :func:`variant` builds a source again with extra
+preprocessor defines (a measurement build, loaded beside the production
+one); its launches are not counted.
 """
 
 from __future__ import annotations
@@ -52,7 +54,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "box_topk": ("box_topk.cu", "box_topk_launch", [_P] * 6 + [_I] * 5 + [_P]),
     "kd_block_search": (
-        "kd_block_search.cu", "kd_block_search_launch", [_P] * 6 + [_I] * 7 + [_P]),
+        "kd_block_search.cu", "kd_block_search_launch",
+        [_P] * 7 + [ctypes.c_longlong] + [_I] * 7 + [_P]),
     "visited_search": (
         "visited_search.cu", "visited_search_launch", [_P] * 7 + [_I] * 5 + [_P]),
     "cached_block_search": (
@@ -77,6 +80,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 BUILD_LOG: dict[str, str] = {}   # source file -> nvcc/ptxas output
 
 _libs: dict[str, ctypes.CDLL] = {}
+_variants: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
@@ -94,12 +98,35 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _lib_path(src: Path) -> Path:
+def _lib_path(src: Path, defines: tuple[str, ...] = ()) -> Path:
     h = hashlib.sha256(src.read_bytes())
     for dep in sorted(CSRC.glob("*.cuh")):
         h.update(dep.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(NVCC_FLAGS + [f"-D{d}" for d in defines]).encode())
+    tag = "".join(f"-{d.lower()}" for d in defines)
+    return BUILD_DIR / f"{src.stem}{tag}-{h.hexdigest()[:16]}.so"
+
+
+def _start_nvcc(src: Path, out: Path, defines: tuple[str, ...] = ()):
+    """Start one nvcc of ``src`` into a temporary file beside ``out``;
+    returns ``(tmp, process)``."""
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I", str(CSRC), "-o", str(tmp),
+           str(src)]
+    return tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _load(path: Path, src_name: str) -> ctypes.CDLL:
+    """Load a built library and type the C entries of ``src_name``."""
+    lib = ctypes.CDLL(str(path))
+    for name, (src, fn_name, argtypes) in KERNELS.items():
+        if src == src_name:
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    lib.icp_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.icp_cuda_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def build_all() -> float:
@@ -117,10 +144,7 @@ def build_all() -> float:
             out = _lib_path(src)
             if out.exists():
                 continue
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
-            jobs[src_name] = (out, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            jobs[src_name] = (out, *_start_nvcc(src, out))
         failed = []
         for src_name, (out, tmp, proc) in jobs.items():
             log, _ = proc.communicate()
@@ -131,23 +155,46 @@ def build_all() -> float:
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-        for name, (src_name, fn_name, argtypes) in KERNELS.items():
-            lib = ctypes.CDLL(str(_lib_path(CSRC / src_name)))
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            lib.icp_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.icp_cuda_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
+        loaded = {}
+        for name, (src_name, _, _) in KERNELS.items():
+            if src_name not in loaded:
+                loaded[src_name] = _load(_lib_path(CSRC / src_name), src_name)
+            _libs[name] = loaded[src_name]
         return time.perf_counter() - t0
 
 
-def launch(name: str, *args) -> None:
+def variant(src_name: str, defines: tuple[str, ...]) -> ctypes.CDLL:
+    """The library of ``csrc/<src_name>`` built with ``-D`` ``defines``
+    (built at the first call, beside the production build; its log under
+    ``BUILD_LOG[src_name + " " + defines]``)."""
+    key = (src_name, tuple(defines))
+    with _lock:
+        if key not in _variants:
+            src = CSRC / src_name
+            out = _lib_path(src, key[1])
+            if not out.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp, proc = _start_nvcc(src, out, key[1])
+                log, _ = proc.communicate()
+                BUILD_LOG[f"{src_name} {' '.join(key[1])}"] = log
+                if proc.returncode != 0:
+                    raise RuntimeError(f"CUDA kernel build failed: {src_name} with "
+                                       f"{key[1]} (nvcc rc {proc.returncode}):\n{log}")
+                os.replace(tmp, out)
+            _variants[key] = _load(out, src_name)
+        return _variants[key]
+
+
+def launch(name: str, *args, defines: tuple[str, ...] = ()) -> None:
     """Launch kernel ``name`` on the current stream of its tensors' device.
     ``args`` are tensors (passed by data pointer), Python ints and floats,
-    in the order of the C function; the stream is appended here."""
-    build_all()
-    lib = _libs[name]
+    in the order of the C function; the stream is appended here. With
+    ``defines``, the :func:`variant` build of its source runs, uncounted."""
+    if defines:
+        lib = variant(KERNELS[name][0], defines)
+    else:
+        build_all()
+        lib = _libs[name]
     devices = {a.device for a in args if isinstance(a, torch.Tensor)}
     if len(devices) != 1:
         raise ValueError(f"{name}: tensors on several devices {sorted(map(str, devices))}")
@@ -159,7 +206,8 @@ def launch(name: str, *args) -> None:
     if err != 0:
         msg = lib.icp_cuda_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")
-    LAUNCHES[name] += 1
+    if not defines:
+        LAUNCHES[name] += 1
 
 
 def feature_dim(name: str, d: int) -> int:

@@ -276,6 +276,15 @@ def box_topk(
 # ---------------------------------------------------------------------------
 
 
+def _block_search_workspace_bytes(b: int, n: int, nc: int, k: int) -> int:
+    """Scratch bytes of one kd_block_search launch (the kernel's
+    ``workspace_layout``: row keys, bucket counts and offsets, chunk
+    offsets, entry ranks and the bucketed entries, each 16-byte aligned)."""
+    rows, nb = b * n, b * nc
+    sizes = (8 * rows, 4 * nb, 4 * (nb + 1), 4 * (nb + 1), 4 * rows * k, 4 * rows * k)
+    return sum(-(-s // 16) * 16 for s in sizes)
+
+
 def kd_block_search_plain(q, sel, binit, pages, probe: int = 0):
     """Plain version of :func:`kd_block_search`: gather each query's k
     blocks and take the first minimum in (sel position, slot) order; with
@@ -315,15 +324,26 @@ def kd_block_search(
     ``csrc/kd_block_search.cu`` (D = 3 or 6, from ``q``); a CPU tensor runs
     :func:`kd_block_search_plain`.
 
+    The kernel is block-major: it buckets the (query, pick) entries by
+    (pair, block) in a scratch workspace and stages each block once per
+    chunk of its bucket (a launch shape fixed per D in the source).
+
     ``probe`` 1 or 2 (a measurement aid, the JAX package's resident-kernel
-    probe): each gate still lists and stages its blocks but computes no
-    distance, and every row returns ``(binit, -1)``, not a match. As in the
+    probe): the entries are still bucketed and each chunk still stages its
+    block, but no distance is computed, and every row returns
+    ``(binit, -1)``, not a match. As in the
     JAX package, whose probe zeroes every gate's member count
     (``knn.py:1467``), both values do the same."""
     if probe not in (0, 1, 2):
         raise ValueError(f"kd_block_search: probe must be 0, 1 or 2, got {probe}")
     if q.device.type == "cpu":
         return kd_block_search_plain(q, sel, binit, pages, probe)
+    return _kd_block_search_launch(q, sel, binit, pages, probe)
+
+
+def _kd_block_search_launch(q, sel, binit, pages, probe, defines=()):
+    """Check the CUDA operands and launch ``csrc/kd_block_search.cu``
+    (its :func:`_cuda.variant` build with ``defines``, uncounted)."""
     b, n = q.shape[0], q.shape[1]
     d = _cuda.feature_dim("kd_block_search", q.shape[-1])
     k = sel.shape[-1]
@@ -335,8 +355,10 @@ def kd_block_search(
     chk("pages", pages, torch.float32, (b, nc, 8, cap_pad))
     d2 = torch.empty((b, n), dtype=torch.float32, device=q.device)
     idx = torch.empty((b, n), dtype=torch.int32, device=q.device)
-    _cuda.launch("kd_block_search", q, sel, binit, pages, d2, idx, b, n, nc, cap_pad, k,
-                 int(probe > 0), d)
+    ws_bytes = _block_search_workspace_bytes(b, n, nc, k)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=q.device)
+    _cuda.launch("kd_block_search", q, sel, binit, pages, d2, idx, ws, ws_bytes, b, n, nc,
+                 cap_pad, k, int(probe > 0), d, defines=defines)
     return d2, idx
 
 

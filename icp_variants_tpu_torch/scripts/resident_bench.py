@@ -5,22 +5,25 @@ PyTorch port of ``probe_decomp`` of the JAX package's
 card, split the kd matcher's time by cause:
 
 * ``box_topk``: the prefix (block ranking, top-k, certificate);
-* ``kd_block_search`` at probe 1: per gate the pick and walk lists and the
-  staging of each member block, no distances;
+* ``kd_block_search`` at probe 1: the bucketing of the (query, pick)
+  entries by block and the staging of each chunk's block, no distances;
 * ``kd_block_search`` in full.
 
 So prefix = the first, staging = the second, distance = the third less the
 second. The queries are the JAX script's draw (:func:`probe_queries`). Its
 gate-width and tile sweeps tune TPU constants that the port does not have
-(the gate is fixed at 32 rows, ``csrc/common.cuh``) and are not ported.
+and are not ported. :func:`lane_use` reads the block search's lane use from
+a measurement build of its kernel.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from icp_variants_tpu_torch.ops import kdtree, knn
+from icp_variants_tpu_torch.ops import _cuda, kdtree, knn
 from icp_variants_tpu_torch.scripts import cuda_ms
 
 N_QUERIES = 4736
@@ -67,3 +70,36 @@ def probe_decomp(kd: kdtree.KDIndex, q: torch.Tensor, max_distance: float = 10.0
     out["full_ms"] = cuda_ms(lambda: kdtree.kd_block_search(q, sel, binit, kd.pages), reps)
     out["distance_ms"] = out["full_ms"] - out["staging_ms"]
     return out
+
+
+
+LANE_DEFINES = ("KDB_LANE_COUNT",)
+
+
+def lane_use(q: torch.Tensor, sel: torch.Tensor, binit: torch.Tensor,
+             pages: torch.Tensor) -> dict:
+    """Read how many of each warp's 32 lanes kd_block_search's walk keeps
+    busy, on the card, for these operands: one launch of the measurement
+    build of ``csrc/kd_block_search.cu`` (``-DKDB_LANE_COUNT``; not counted
+    in ``_cuda.LAUNCHES``), whose walk sums ``__activemask()``'s lanes at
+    each warp step. Returns ``spatial`` (active lanes / 32 over the steps
+    of the first min(D, 3) features), ``colour`` (the same over the steps
+    that add the colour terms at D = 6, else None), the step counts, and
+    ``equal``: that build's (d2, idx) equal the production build's."""
+    lib = _cuda.variant("kd_block_search.cu", LANE_DEFINES)
+    read = lib.kd_block_search_lanes
+    read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    counts = (ctypes.c_ulonglong * 4)()
+    torch.cuda.synchronize()
+    if read(counts, 1) != 0:
+        raise RuntimeError("kd_block_search_lanes: reset failed")
+    got = kdtree._kd_block_search_launch(q, sel, binit, pages, 0, LANE_DEFINES)
+    torch.cuda.synchronize()
+    if read(counts, 1) != 0:
+        raise RuntimeError("kd_block_search_lanes: read failed")
+    want = kdtree.kd_block_search(q, sel, binit, pages)
+    active, steps, c_active, c_steps = (int(c) for c in counts)
+    return dict(
+        spatial=active / steps if steps else None, spatial_steps=steps // 32,
+        colour=c_active / c_steps if c_steps else None, colour_steps=c_steps // 32,
+        equal=bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])))

@@ -337,3 +337,166 @@ def test_kernels_match_plain_on_card(d):
         want = tproj.projective_match_plain(pq, pix, img, ok, **kw)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         assert bool((got[0] >= 0).any()) and bool((got[0] < 0).any())
+
+
+def _tie_boxes(d, seed):
+    """Two pairs of integer boxes (every bound exact in f32): pair 0 with
+    repeated boxes (equal bounds), empty boxes (+inf bounds) and one box
+    whose square overflows to +inf; pair 1 with only two finite boxes, so
+    that k > 2 reaches argmin's all-+inf rounds."""
+    rng = np.random.default_rng(seed)
+    nc = 24
+    lo = rng.integers(-4, 3, (2, nc, d)).astype(np.float32)
+    hi = lo + rng.integers(0, 3, (2, nc, d)).astype(np.float32)
+    lo[0, 10:14], hi[0, 10:14] = lo[0, 0:4], hi[0, 0:4]
+    lo[0, 2::5], hi[0, 2::5] = np.inf, -np.inf
+    lo[0, 7, 0] = hi[0, 7, 0] = 3.0e38
+    lo[1, :], hi[1, :] = np.inf, -np.inf
+    lo[1, 0], hi[1, 0] = lo[0, 0], hi[0, 0]
+    lo[1, 9], hi[1, 9] = lo[0, 1], hi[0, 1]
+    q = rng.integers(-5, 6, (2, 300, d)).astype(np.float32)
+    return q, lo, hi
+
+
+@pytest.mark.parametrize("d", [3, 6])
+@pytest.mark.parametrize("k", [1, 4, 16])
+def test_box_topk_plain_matches_jax_on_ties_and_inf_bounds(d, k):
+    """box_topk_plain's picks and residual are JAX's eager box ranking
+    (``_box_lb`` + ``_extract_min``) on equal and +inf bounds, including
+    argmin's rounds over all-+inf rows (block 0 again); sel is -1 exactly
+    where the pick's bound exceeds binit."""
+    q, lo, hi = _tie_boxes(d, seed=40 + d + k)
+    rng = np.random.default_rng(k)
+    binit = rng.choice([np.inf, 3.0, 0.0, -1.0], q.shape[:2]).astype(np.float32)
+    tsel, tres = tkd.box_topk(*(torch.from_numpy(a) for a in (q, binit, lo, hi)), k)
+    for b in range(2):
+        lb = jkd._box_lb(jnp.asarray(q[b]), jnp.asarray(lo[b]), jnp.asarray(hi[b]))
+        jsel, jres = (_n(x) for x in jkd._extract_min(lb, k))
+        member = np.take_along_axis(_n(lb), jsel, axis=1) <= binit[b][:, None]
+        np.testing.assert_array_equal(tsel[b].numpy(), np.where(member, jsel, -1))
+        np.testing.assert_array_equal(tres[b].numpy(), jres)
+        assert np.isinf(_n(lb)).any()
+    if k > 2:
+        assert (jsel[:, 2:] == 0).all()  # pair 1: the all-+inf rounds pick block 0
+
+
+def _tie_cloud(d, n_valid, capacity, seed):
+    """An integer-valued target cloud (every distance exact in f32, so JAX's
+    jitted sums equal the port's) with repeated points, padded to
+    ``capacity`` rows."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(-6, 7, (n_valid, d)).astype(np.float32)
+    t[n_valid // 2:n_valid // 2 + n_valid // 8] = t[:n_valid // 8]
+    pad = np.full((capacity - n_valid, d), 2.0e6, np.float32)
+    q = rng.integers(-7, 8, (400, d)).astype(np.float32)
+    return q, np.concatenate([t, pad])
+
+
+@pytest.mark.parametrize("d", [3, 6])
+@pytest.mark.parametrize("k", [1, 4])
+def test_block_search_plain_matches_nn_search_kd_on_ties(d, k):
+    """kd_block_search_plain (through the port's nn_search_kd) equals JAX's
+    nn_search_kd exactly on integer clouds: ties across picks and within a
+    block go to the earliest pick, then the lowest slot; on a cloud with
+    two points in 16 blocks, k = 4 repeats block 0 (duplicate picks)."""
+    for n_valid, capacity, target, maxd, seed in ((2000, 2048, 128, 30.0, 50),
+                                                  (2, 64, 4, 1000.0, 51)):
+        q, t = _tie_cloud(d, n_valid, capacity, seed + d + k)
+        jidx, tidx = _both_indexes(t, block_target=target)
+        ji, jd, jf = (_n(x) for x in jkd.nn_search_kd(jnp.asarray(q), jidx, maxd, k=k))
+        ti, td, tf = (x.numpy() for x in tkd.nn_search_kd(torch.from_numpy(q), tidx, maxd, k=k))
+        np.testing.assert_array_equal(ti, ji)
+        np.testing.assert_array_equal(td, jd)
+        np.testing.assert_array_equal(tf, jf)
+        sel, _ = tkd.box_topk(torch.from_numpy(q)[None], torch.full((1, len(q)), np.inf),
+                              tidx.block_min[None], tidx.block_max[None], k)
+        if n_valid == 2 and k == 4:
+            assert (sel[0, :, 2:] == 0).all()
+        assert (ti >= 0).mean() > 0.5
+
+
+def _card_tie_inputs(d, k, seed):
+    """Integer pages and queries on the card (exact distances, many ties),
+    B = 3 pairs of N = 3,001 rows (not a multiple of 32 or 128) over 9
+    blocks of 256 slots: picks with repeats, ids past nc - 1, rows of all
+    -1, every query picking block 2 first in pair 2 (a bucket past one
+    chunk), and starting bounds inf, 2 (equal to many distances), 0 and -1."""
+    rng = np.random.default_rng(seed)
+    b, n, nc, cap_pad = 3, 3001, 9, 256
+    pages = rng.integers(-3, 4, (b, nc, 8, cap_pad)).astype(np.float32)
+    pages[:, :, 1, 7] = pages[:, :, 1, 3]
+    q = rng.integers(-3, 4, (b, n, d)).astype(np.float32)
+    sel = rng.integers(-1, nc + 3, (b, n, k)).astype(np.int32)
+    sel[:, ::17] = -1
+    if k > 1:
+        sel[:, 1::5, 1] = sel[:, 1::5, 0]
+    sel[2, :, 0] = 2
+    binit = rng.choice([np.inf, 2.0, 6.0, 0.0, -1.0], (b, n)).astype(np.float32)
+    dev = torch.device("cuda")
+    return tuple(torch.from_numpy(a).to(dev) for a in (q, sel, binit, pages))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 6])
+@pytest.mark.parametrize("k", [1, 4, 16])
+def test_block_search_contract_on_card(d, k):
+    """The block-major kd_block_search equals its plain version (on the
+    picks clipped to nc - 1) on ties across picks and within a block,
+    repeated and clipped picks, all -1 rows, d2 == binit, one bucket far
+    past a chunk (and buckets whose last chunk is short, so its slots split
+    over several threads each), and N not a multiple of 32 or 128; probe = 1
+    gives (binit, -1) on every row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, sel, binit, pages = _card_tie_inputs(d, k, seed=60 + d + k)
+    nc = pages.shape[1]
+    want = tkd.kd_block_search_plain(q, sel.clamp(max=nc - 1), binit, pages)
+    assert bool((want[1] >= 0).any()) and bool((want[1] < 0).any())
+    got = tkd.kd_block_search(q, sel, binit, pages)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    pd2, pidx = tkd.kd_block_search(q, sel, binit, pages, probe=1)
+    torch.cuda.synchronize()
+    assert torch.equal(pd2, binit) and bool((pidx == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 6])
+def test_block_search_lane_counts_on_card(d):
+    """The lane-counting measurement build of kd_block_search gives the
+    production result, uncounted, and shares of active lanes in (0, 1]: the
+    spatial steps, and the colour-term steps at D = 6 only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from icp_variants_tpu_torch.ops import _cuda
+    from icp_variants_tpu_torch.scripts import resident_bench
+
+    q, sel, binit, pages = _card_tie_inputs(d, 4, seed=80 + d)
+    before = _cuda.LAUNCHES["kd_block_search"]
+    r = resident_bench.lane_use(q, sel.clamp(max=pages.shape[1] - 1), binit, pages)
+    assert _cuda.LAUNCHES["kd_block_search"] == before + 1  # the production comparison only
+    assert r["equal"] and r["spatial_steps"] > 0 and 0.0 < r["spatial"] <= 1.0
+    if d == 6:
+        assert r["colour_steps"] > 0 and 0.0 < r["colour"] <= 1.0
+    else:
+        assert r["colour"] is None and r["colour_steps"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 6])
+def test_box_topk_contract_on_card(d):
+    """The one-pass box_topk equals its plain version on equal bounds, +inf
+    bounds (empty boxes, overflowing squares) and all-+inf rounds, for
+    k = 1, 2, 3, 4, 5, 9 and 16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, lo, hi = _tie_boxes(d, seed=70 + d)
+    rng = np.random.default_rng(71)
+    binit = rng.choice([np.inf, 3.0, 0.0, -1.0], q.shape[:2]).astype(np.float32)
+    dev = torch.device("cuda")
+    args = [torch.from_numpy(a).to(dev) for a in (q, binit, lo, hi)]
+    for k in (1, 2, 3, 4, 5, 9, 16):
+        got = tkd.box_topk(*args, k)
+        want = tkd.box_topk_plain(*args, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), k

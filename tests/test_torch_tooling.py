@@ -276,6 +276,53 @@ def test_block_search_probe_matches_jax_resident_probe():
         tkd.kd_block_search(tq_, sel, tb, tidx.pages[None], probe=3)
 
 
+def test_measurement_build_is_kept_apart_from_the_production_build():
+    """kd_block_search's lane-counting build (``resident_bench.lane_use``)
+    gets a library path of its own, so it never replaces the production
+    build; its source guards the counters and their reader behind the
+    define; and the CUDA launch path refuses CPU tensors rather than
+    running the plain version."""
+    from icp_variants_tpu_torch.ops import _cuda
+    from icp_variants_tpu_torch.scripts import resident_bench
+
+    src = _cuda.CSRC / "kd_block_search.cu"
+    prod, lanes = _cuda._lib_path(src), _cuda._lib_path(src, resident_bench.LANE_DEFINES)
+    assert prod != lanes and prod.parent == lanes.parent
+    assert lanes.name.startswith("kd_block_search-kdb_lane_count-")
+    text = src.read_text()
+    assert text.count("#ifdef KDB_LANE_COUNT") >= 3
+    guarded = text[text.rindex("#ifdef KDB_LANE_COUNT"):]
+    assert 'extern "C" int kd_block_search_lanes(' in guarded
+    q = torch.zeros((1, 4, 3))
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        tkd._kd_block_search_launch(q, torch.zeros((1, 4, 1), dtype=torch.int32),
+                                    torch.zeros((1, 4)), torch.zeros((1, 1, 8, 4)), 0,
+                                    resident_bench.LANE_DEFINES)
+
+
+@pytest.mark.parametrize("spec, old, new", [
+    ("unroll=8", "#pragma unroll 4\n  for (int s4", "#pragma unroll 8\n  for (int s4"),
+    ("d3=32x2", "KdbShape<3> { static constexpr int chunk = 64, queries = 1; }",
+     "KdbShape<3> { static constexpr int chunk = 32, queries = 2; }"),
+    ("d6=1024x4", "KdbShape<6> { static constexpr int chunk = 512, queries = 2; }",
+     "KdbShape<6> { static constexpr int chunk = 1024, queries = 4; }"),
+])
+def test_kd_variants_edit_one_line_of_the_walk(spec, old, new):
+    """scripts/kd_variants' edits change exactly the named line of the
+    production kd_block_search.cu (the slot loop's unroll, one D's launch
+    shape) and refuse a spec they cannot place."""
+    from icp_variants_tpu_torch.ops import _cuda
+    from icp_variants_tpu_torch.scripts import kd_variants
+
+    src = (_cuda.CSRC / "kd_block_search.cu").read_text()
+    assert src.count(old) == 1
+    assert kd_variants._edit(src, spec) == src.replace(old, new)
+    with pytest.raises(ValueError):
+        kd_variants._edit(src.replace(old, ""), spec)
+    with pytest.raises(ValueError):
+        kd_variants._edit(src, "chunk=64")
+
+
 # ---------------------------------------------------------------------------
 # Trim parity on the kd path (ROADMAP.md queue 3)
 # ---------------------------------------------------------------------------
