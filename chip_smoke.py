@@ -82,6 +82,9 @@ Phases, in order; any failure exits nonzero:
    iteration's radii, and timed there; kd_radius_search
    against its plain version on every row at the first iteration's radii
    and at the final pose's cached radii (k = 4) and on pair 0 at k = 0;
+   visited_search at the fallback's real inputs (the rows whose
+   certificate fails at the final pose's cached radii at the bound, the
+   rest frozen) against its plain version on every live row, timed there;
    pair 0's warm matcher at its final pose against cKDTree on all rows; the
    mean error against the true poses under a gross gate. Then one
    600,000-point pair, whose table the JAX package serves in its packed
@@ -1076,41 +1079,17 @@ def color_phase():
           f"visited_search D=6 (all rows live, {b} x {len(sub)} rows): equal to plain")
     _, _, fail = kdtree.nn_search_kd_resident(q_ex, kx, TUM_MAX_DISTANCE)
     radii = torch.where(fail, bv, -1.0).contiguous()
-    vdf, vif = knn.visited_search(q_ex, radii, fidx)
-    live_n = fail.sum(1)
-    l_max = max(int(live_n.max()), 1)
-    order = torch.argsort((~fail).to(torch.uint8), dim=1, stable=True)[:, :l_max]
-    lq, lr = knn.take_rows(q_ex, order), torch.where(knn.take_rows(fail, order), bv, -1.0)
-    (lp_d, lp_i), live_plain_ms = plain_pass(
-        lambda s, e: knn.visited_search_plain(lq[:, s:e].contiguous(), lr[:, s:e].contiguous(),
-                                              fidx), l_max)
-    check(torch.equal(knn.take_rows(vdf, order), lp_d)
-          and torch.equal(knn.take_rows(vif, order), lp_i),
-          f"visited_search D=6 at the fallback's radii: all {int(live_n.sum())} live rows of "
-          f"{b * n} equal to plain")
-    n_tiles, tile_t = fidx.points_t3.shape[1], fidx.points_t3.shape[-1]
-    tile_real = torch.nn.functional.pad(targets.valid.to(torch.int64), (0, n_tiles * tile_t - cap))
-    tile_real = tile_real.reshape(b, n_tiles, tile_t).sum(-1)
-    lb = knn.box_lb(lq, fidx.bbox_min[..., :d], fidx.bbox_max[..., :d])
-    need = (lb <= knn.take_rows(vdf, order)[..., None]) & (lr >= 0)[..., None]
-    del lb
-    need_pts = int(torch.bmm(need.float(), tile_real[:, :, None].float()).double().sum())
-    touched = need.any(1)
+    frow = fallback_row("D=6 at the fallback's radii", q_ex, radii, fidx, targets.valid, 5)
     rows["visited_search"] = dict(
-        err=max(float((vd_k - vd_p).abs().max()), float((knn.take_rows(vdf, order) - lp_d).abs().max())),
-        shapes=f"{shapes}, {int(live_n.sum())} live rows (the exact arm's fallback radii)",
-        ms=time_ms(lambda: knn.visited_search(q_ex, radii, fidx), 5),
-        plain_ms=live_plain_ms, plain_on="the same live rows only (frozen rows need no work)",
+        frow, err=max(float((vd_k - vd_p).abs().max()), frow["err"]),
+        shapes=f"{shapes}, {frow['live_rows']} live rows (the exact arm's fallback radii)",
         all_live_ms=time_ms(lambda: knn.visited_search(qs, b_sub, fidx), 5),
         all_live_plain_ms=time_ms(lambda: knn.visited_search_plain(qs, b_sub, fidx), 2),
-        all_live_on=f"{b} x {len(sub)} rows, all live",
-        bound=bound(b * n * 3 * 4 + int(live_n.sum()) * d * 4
-                    + int(tile_real[touched].sum()) * d * 4, need_pts * 3 * d))
-    print(f"  visited_search at the fallback's radii: {int(live_n.sum())} live rows "
-          f"({int(live_n.max())} in the fullest frame), {need_pts} real points needed; all "
-          f"live on {b} x {len(sub)} rows: kernel {rows['visited_search']['all_live_ms']:.4f} ms, "
-          f"plain {rows['visited_search']['all_live_plain_ms']:.4f} ms")
-    del need, lq, order, vdf, vif, fail, lp_d, lp_i
+        all_live_on=f"{b} x {len(sub)} rows, all live")
+    print(f"  visited_search D=6 all live on {b} x {len(sub)} rows: kernel "
+          f"{rows['visited_search']['all_live_ms']:.4f} ms, plain "
+          f"{rows['visited_search']['all_live_plain_ms']:.4f} ms")
+    del fail, radii
 
     # kd_radius_search at k = 0 (radius-complete membership) on frame 0, at
     # the warm radii of the exact warm-up's final pose: the cache one warm
@@ -1734,6 +1713,65 @@ def needed_work(kd, q, sel, d2):
     return nbytes, need_pts * 3 * d, need_pts, int(used.sum())
 
 
+def fallback_row(label, q, radii, fidx, valid, reps):
+    """visited_search at a fallback's real radii (``radii`` >= 0 on the
+    rows whose certificate failed, -1 elsewhere): the kernel on every row;
+    each live row held equal to the plain version (the live rows gathered
+    to the front of each pair, the plain version in windows of rows), each
+    frozen row (radius, -1); the tiles each live row needs (box bound <= its
+    result d2); kernel ms, plain ms over the live rows, and the bound (its
+    query, radius and result bytes, each touched tile's real points once,
+    3D operations per needed real point). Returns the row's dict."""
+    import torch
+
+    from icp_variants_tpu_torch.ops import knn
+
+    b, n, d = q.shape
+    live = radii >= 0
+    vd, vi = knn.visited_search(q, radii, fidx)
+    live_n = live.sum(1)
+    n_live = int(live_n.sum())
+    l_max = max(int(live_n.max()), 1)
+    order = torch.argsort((~live).to(torch.uint8), dim=1, stable=True)[:, :l_max]
+    lq = knn.take_rows(q, order)
+    lr = torch.where(knn.take_rows(live, order), knn.take_rows(radii, order), -1.0)
+    (lp_d, lp_i), plain_ms = plain_pass(
+        lambda s, e: knn.visited_search_plain(lq[:, s:e].contiguous(), lr[:, s:e].contiguous(),
+                                              fidx), l_max)
+    ld, li = knn.take_rows(vd, order), knn.take_rows(vi, order)
+    check(torch.equal(ld, lp_d) and torch.equal(li, lp_i)
+          and torch.equal(vd[~live], radii[~live]) and bool((vi[~live] == -1).all()),
+          f"visited_search {label}: all {n_live} live rows of {b * n} equal to plain, every "
+          "frozen row (radius, -1)")
+    n_tiles, tile_t = fidx.points_t3.shape[1], fidx.points_t3.shape[-1]
+    cap = valid.shape[1]
+    tile_real = torch.nn.functional.pad(valid.to(torch.int64), (0, n_tiles * tile_t - cap))
+    tile_real = tile_real.reshape(b, n_tiles, tile_t).sum(-1).float()
+    need_tiles, need_pts = 0, 0
+    touched = torch.zeros((b, n_tiles), dtype=torch.bool, device=q.device)
+    for s in range(0, l_max, 8192):
+        e = min(s + 8192, l_max)
+        lb = knn.box_lb(lq[:, s:e], fidx.bbox_min[..., :d], fidx.bbox_max[..., :d])
+        need = (lb <= ld[:, s:e, None]) & (lr[:, s:e] >= 0)[..., None]
+        need_tiles += int(need.sum())
+        need_pts += int(torch.bmm(need.float(), tile_real[:, :, None]).double().sum())
+        touched |= need.any(1)
+        del lb, need
+    row = dict(
+        err=float((ld - lp_d).abs().max()), live_rows=n_live,
+        tiles_needed_per_live_row=need_tiles / max(n_live, 1),
+        ms=time_ms(lambda: knn.visited_search(q, radii, fidx), reps), plain_ms=plain_ms,
+        plain_on="the same live rows only (frozen rows need no work)",
+        bound=bound(b * n * 3 * 4 + n_live * d * 4 + int(tile_real[touched].sum()) * d * 4,
+                    need_pts * 3 * d))
+    print(f"  visited_search {label}: {n_live} live rows of {b * n} ({int(live_n.max())} in "
+          f"the fullest pair), each needs {row['tiles_needed_per_live_row']:.2f} of {n_tiles} "
+          f"tiles ({need_pts} real points in all); kernel {row['ms']:.4f} ms, plain "
+          f"{plain_ms:.4f} ms on the live rows, bound {row['bound'][0]:.5f} ms "
+          f"({row['bound'][1]})", flush=True)
+    return row
+
+
 def dense_phase():
     """Phase 6 on the card: dense exact registration of 1,000,000-point
     scans with caller-built kd indexes past the resident rule, and the
@@ -1903,6 +1941,17 @@ def dense_phase():
           flush=True)
     del d2, idx, d2_p, idx_p
 
+    # ---- visited_search at the fallback's real inputs ----------------------
+    # The rows whose top-k certificate fails at the final pose's cached radii
+    # (match_kd_warm's fail) search within the bound; the rest are frozen.
+    fail = kdtree.nn_search_kd_warm(qf, kd, MAX_DISTANCE, cached_r)[2]
+    fradii = torch.where(fail, bv, -1.0).to(torch.float32).contiguous()
+    vrow = fallback_row("at the dense fallback's radii", qf, fradii, fidx, targets.valid, 10)
+    vrow["shapes"] = (f"{b} x {cap} rows (D = 3), {vrow['live_rows']} live (the final pose's "
+                      f"certificate failures), {fidx.points_t3.shape[1]} tiles of "
+                      f"{knn.V2_TILE_T}")
+    del fail, fradii
+
     # ---- pair 0's warm matcher at its final pose against cKDTree ----------
     kd0 = kdtree.KDIndex(*(None if f is None else f[:1] for f in kd))
     fidx0 = knn.TargetIndex(*(f[:1] for f in fidx))
@@ -1981,8 +2030,8 @@ def dense_phase():
           f"dense: mean t_err <= {DENSE_T_ERR_LIMIT_M * 1e3:g} mm")
     check(arm["r_err_deg"] <= DENSE_R_ERR_LIMIT_DEG,
           f"dense: mean r_err <= {DENSE_R_ERR_LIMIT_DEG:g} deg")
-    return ({"kd_radius_search": row, "kd_block_search_packed": packed, "box_topk_dense": box_row},
-            dict(launches))
+    return ({"kd_radius_search": row, "kd_block_search_packed": packed, "box_topk_dense": box_row,
+             "visited_search_dense": vrow}, dict(launches))
 
 
 def expansion_tol(q, t, d):
@@ -2501,7 +2550,8 @@ def record(rows_eth, launches_eth, rows, launches) -> None:
     """Phase 9: the kernels line. Each kd kernel's time, bound and plain
     time are at the colour path's full shapes (D = 6; the plain version in
     windows of rows, visited_search's on the live rows only), its ETH
-    numbers (D = 3, full shapes) under ``eth``; the projective window
+    numbers (D = 3, full shapes) under ``eth``, visited_search's at the
+    dense fallback's (D = 3) under ``dense``; the projective window
     search's at the projective path's; kd_radius_search's at the dense
     path's (D = 3), its colour reading (D = 6, k = 0) under ``colour``, and
     kd_block_search's on the packed-size pair under ``packed``; box_topk's
@@ -2622,6 +2672,14 @@ def record(rows_eth, launches_eth, rows, launches) -> None:
                 prefix_ms=p["prefix_ms"], staging_ms=p["staging_ms"],
                 distance_ms=p["distance_ms"], full_ms=p["full_ms"],
                 full_plain_ms=p["full_plain_ms"], shapes=p["shapes"])
+        if name == "visited_search":
+            p = rows["visited_search_dense"]
+            entry["max_abs_err"] = max(entry["max_abs_err"], p["err"])
+            entry["dense"] = dict(ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound"][0],
+                                  bound_by=p["bound"][1], max_abs_err=p["err"],
+                                  shapes=p["shapes"], plain_on=p["plain_on"],
+                                  live_rows=p["live_rows"],
+                                  tiles_needed_per_live_row=p["tiles_needed_per_live_row"])
         if name == "box_topk":
             p = rows["box_topk_dense"]
             entry["max_abs_err"] = max(entry["max_abs_err"], p["err"])

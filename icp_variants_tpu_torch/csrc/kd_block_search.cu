@@ -27,7 +27,9 @@
 //     the pair's global histogram with one atomic and keeps each entry's
 //     rank in its (pair, block) bucket; it also sets each row's merge key.
 //  2. kd_block_search_scan: one CTA; bucket offsets and chunk offsets
-//     (a bucket is cut into chunks of KdbShape<D>::chunk entries).
+//     (a bucket is cut into chunks of KdbShape<D>::chunk entries). The
+//     scan and the walk's small helpers are common.cuh's, shared with
+//     kd_radius_search.cu.
 //  3. kd_block_search_scatter: entries into bucket order (query row * 16
 //     + pick position).
 //  4. kd_block_search_walk: one CTA per chunk. One thread issues a single
@@ -96,29 +98,20 @@ struct Workspace {
   int* ent;                  // (B * N * k) entries in bucket order
 };
 
-size_t align16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
-
 // The workspace's layout from `base` (null: offsets only); returns the
 // bytes it needs. ops/kdtree.py (_block_search_workspace_bytes) allocates
 // the same sum.
 size_t workspace_layout(char* base, int B, int N, int nc, int k, Workspace* w) {
   const size_t rows = static_cast<size_t>(B) * N, nb = static_cast<size_t>(B) * nc;
-  size_t off = 0;
-  auto take = [&](size_t bytes) {
-    char* p = base ? base + off : nullptr;
-    off += align16(bytes);
-    return p;
-  };
-  w->keys = reinterpret_cast<unsigned long long*>(take(8 * rows));
-  w->counts = reinterpret_cast<int*>(take(4 * nb));
-  w->boff = reinterpret_cast<int*>(take(4 * (nb + 1)));
-  w->coff = reinterpret_cast<int*>(take(4 * (nb + 1)));
-  w->rank = reinterpret_cast<int*>(take(4 * rows * k));
-  w->ent = reinterpret_cast<int*>(take(4 * rows * k));
-  return off;
+  IcpCarve ws{base};
+  w->keys = ws.take<unsigned long long>(8 * rows);
+  w->counts = ws.take<int>(4 * nb);
+  w->boff = ws.take<int>(4 * (nb + 1));
+  w->coff = ws.take<int>(4 * (nb + 1));
+  w->rank = ws.take<int>(4 * rows * k);
+  w->ent = ws.take<int>(4 * rows * k);
+  return ws.off;
 }
-
-__device__ __forceinline__ int clip_pick(int v, int nc) { return v < 0 ? -1 : min(v, nc - 1); }
 
 }  // namespace
 
@@ -148,10 +141,10 @@ kd_block_search_bin(const int32_t* __restrict__ sel, const float* __restrict__ b
       const float r = binit[row];
       keys[row] = r > 0.0f ? static_cast<unsigned long long>(__float_as_uint(r)) << 32 : 0ull;
     }
-    const int c = clip_pick(psel[e], nc);
+    const int c = icp_clip_pick(psel[e], nc);
     if (c < 0) continue;
     bool dup = false;
-    for (int p = 1; p <= pos; ++p) dup |= clip_pick(psel[e - p], nc) == c;
+    for (int p = 1; p <= pos; ++p) dup |= icp_clip_pick(psel[e - p], nc) == c;
     if (dup) continue;
     blk[i] = c;
     lr[i] = atomicAdd(&hist[c], 1);
@@ -171,40 +164,9 @@ kd_block_search_bin(const int32_t* __restrict__ sel, const float* __restrict__ b
 
 // 2. Exclusive scans of the bucket sizes and of their chunk counts.
 __global__ void __launch_bounds__(KDB_SCAN_THREADS)
-kd_block_search_scan(const int* __restrict__ counts, int* __restrict__ boff,
-                     int* __restrict__ coff, int nb, int chunk) {
-  __shared__ int s_a[KDB_SCAN_THREADS], s_c[KDB_SCAN_THREADS];
-  const int t = threadIdx.x;
-  const int per = (nb + KDB_SCAN_THREADS - 1) / KDB_SCAN_THREADS;
-  const int lo = min(nb, t * per), hi = min(nb, lo + per);
-  int a = 0, c = 0;
-  for (int u = lo; u < hi; ++u) {
-    const int n = counts[u];
-    a += n;
-    c += (n + chunk - 1) / chunk;
-  }
-  s_a[t] = a;
-  s_c[t] = c;
-  __syncthreads();
-  for (int off = 1; off < KDB_SCAN_THREADS; off *= 2) {
-    const int ta = t >= off ? s_a[t - off] : 0, tc = t >= off ? s_c[t - off] : 0;
-    __syncthreads();
-    s_a[t] += ta;
-    s_c[t] += tc;
-    __syncthreads();
-  }
-  int ra = s_a[t] - a, rc = s_c[t] - c;  // exclusive
-  for (int u = lo; u < hi; ++u) {
-    const int n = counts[u];
-    boff[u] = ra;
-    coff[u] = rc;
-    ra += n;
-    rc += (n + chunk - 1) / chunk;
-  }
-  if (t == KDB_SCAN_THREADS - 1) {
-    boff[nb] = s_a[t];
-    coff[nb] = s_c[t];
-  }
+kd_block_search_scan(int* __restrict__ counts, int* __restrict__ boff, int* __restrict__ coff,
+                     int nb, int chunk) {
+  icp_bucket_scan<KDB_SCAN_THREADS, false>(counts, boff, coff, nb, chunk);
 }
 
 // 3. Entries into bucket order.
@@ -221,25 +183,9 @@ kd_block_search_scatter(const int32_t* __restrict__ sel, const int* __restrict__
     if (e >= nk) continue;
     const int r = rank[b * nk + e];
     if (r < 0) continue;
-    const int c = clip_pick(sel[b * nk + e], nc);
+    const int c = icp_clip_pick(sel[b * nk + e], nc);
     ent[boff[b * nc + c] + r] = static_cast<int>(e / k) * 16 + static_cast<int>(e % k);
   }
-}
-
-// d += (t - x)^2 on each of four slots, rounded like the plain version.
-__device__ __forceinline__ void add_diff2(float4& d, const float4& t, float x) {
-  d.x = __fadd_rn(d.x, icp_diff2(t.x, x));
-  d.y = __fadd_rn(d.y, icp_diff2(t.y, x));
-  d.z = __fadd_rn(d.z, icp_diff2(t.z, x));
-  d.w = __fadd_rn(d.w, icp_diff2(t.w, x));
-}
-
-__device__ __forceinline__ float min4(const float4& d) {
-  return fminf(fminf(d.x, d.y), fminf(d.z, d.w));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 #ifdef KDB_LANE_COUNT
@@ -288,7 +234,7 @@ kd_block_search_walk(const float* __restrict__ q, const float* __restrict__ bini
   const int e_lo = boff[u] + (c - coff[u]) * chunk;
   const int n_e = min(boff[u + 1] - e_lo, chunk);
 
-  const uint32_t bar_a = smem_addr(&bar);
+  const uint32_t bar_a = icp_smem_addr(&bar);
   if (threadIdx.x == 0) {
     const uint32_t bytes = static_cast<uint32_t>(D) * cap_pad * sizeof(float);
     const float* src = pages + (static_cast<size_t>(b) * nc + blk) * 8 * cap_pad;
@@ -298,7 +244,7 @@ kd_block_search_walk(const float* __restrict__ q, const float* __restrict__ bini
                  ::"r"(bar_a), "r"(bytes) : "memory");
     asm volatile(
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-        ::"r"(smem_addr(tile4)), "l"(src), "r"(bytes), "r"(bar_a) : "memory");
+        ::"r"(icp_smem_addr(tile4)), "l"(src), "r"(bytes), "r"(bar_a) : "memory");
   }
   __syncthreads();  // the barrier is initialised before anyone waits on it
 
@@ -365,8 +311,8 @@ kd_block_search_walk(const float* __restrict__ q, const float* __restrict__ bini
       dq[i] = make_float4(icp_diff2(t[0].x, qv[i][0]), icp_diff2(t[0].y, qv[i][0]),
                           icp_diff2(t[0].z, qv[i][0]), icp_diff2(t[0].w, qv[i][0]));
 #pragma unroll
-      for (int j = 1; j < H; ++j) add_diff2(dq[i], t[j], qv[i][j]);
-      live |= min4(dq[i]) < best[i];
+      for (int j = 1; j < H; ++j) icp_add_diff2(dq[i], t[j], qv[i][j]);
+      live |= icp_min4(dq[i]) < best[i];
     }
     if (H < D) {
       // A partial sum only grows (every term >= 0, rounding is monotone),
@@ -378,11 +324,11 @@ kd_block_search_walk(const float* __restrict__ q, const float* __restrict__ bini
 #pragma unroll
       for (int i = 0; i < Q; ++i)
 #pragma unroll
-        for (int j = H; j < D; ++j) add_diff2(dq[i], t[j], qv[i][j]);
+        for (int j = H; j < D; ++j) icp_add_diff2(dq[i], t[j], qv[i][j]);
     }
 #pragma unroll
     for (int i = 0; i < Q; ++i) {
-      if (min4(dq[i]) < best[i]) {
+      if (icp_min4(dq[i]) < best[i]) {
         // In slot order with a strict <: the lowest slot among equals.
         const int s = 4 * s4;
         if (dq[i].x < best[i]) best[i] = dq[i].x, slot[i] = s;
@@ -426,7 +372,7 @@ kd_block_search_out(const unsigned long long* __restrict__ keys,
   const int pos = static_cast<int>(low >> KDB_SLOT_BITS) - 1;
   const int slot = static_cast<int>(low & ((1u << KDB_SLOT_BITS) - 1));
   d2[r] = __uint_as_float(static_cast<uint32_t>(key >> 32));
-  idx[r] = clip_pick(sel[r * k + pos], nc) * cap_pad + slot;
+  idx[r] = icp_clip_pick(sel[r * k + pos], nc) * cap_pad + slot;
 }
 
 template <int D, bool PROBE>

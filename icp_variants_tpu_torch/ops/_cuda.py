@@ -57,12 +57,14 @@ KERNELS = {
         "kd_block_search.cu", "kd_block_search_launch",
         [_P] * 7 + [ctypes.c_longlong] + [_I] * 7 + [_P]),
     "visited_search": (
-        "visited_search.cu", "visited_search_launch", [_P] * 7 + [_I] * 5 + [_P]),
+        "visited_search.cu", "visited_search_launch",
+        [_P] * 8 + [ctypes.c_longlong] + [_I] * 5 + [_P]),
     "cached_block_search": (
         "cached_block_search.cu", "cached_block_search_launch",
         [_P, _P, _P, _F] + [_P] * 3 + [_I] * 5 + [_P]),
     "kd_radius_search": (
-        "kd_radius_search.cu", "kd_radius_search_launch", [_P] * 8 + [_I] * 6 + [_P]),
+        "kd_radius_search.cu", "kd_radius_search_launch",
+        [_P] * 9 + [ctypes.c_longlong] + [_I] * 6 + [_P]),
     "projective_window_search": (
         "projective_window_search.cu", "projective_window_search_launch",
         [_P] * 6 + [_I] * 6 + [_P]),

@@ -45,9 +45,17 @@ INDEX_TILE_T = 512
 TILE_Q = 256
 # Row fill of the tile-multiple padding of a target index.
 _ROW_PAD = 1.0e6
-# Largest kd block count per pair that kd_radius_search takes (its CUDA
-# kernel lists a gate's member union in shared memory).
+# Largest kd block count per pair that kd_radius_search takes (at k = 0 its
+# CUDA kernel holds a pair's boxes in shared memory).
 KD_RADIUS_MAX_BLOCKS = 1024
+# Largest top-k pick count of the kd kernels (ICP_MAX_K in csrc/common.cuh),
+# and the blocks one k = 0 round of kd_radius_search looks at (RS_SPAN in
+# csrc/kd_radius_search.cu): the entries a row may give in one round.
+KD_MAX_K = 16
+KD_RADIUS_SPAN = 32
+# The visited search keeps one f32 bound per tile per warp in shared memory
+# (VS_SMEM_MAX in csrc/visited_search.cu).
+VISITED_MAX_TILES = 200 * 1024 // 4
 
 
 def _pad_features(x: torch.Tensor) -> torch.Tensor:
@@ -301,7 +309,12 @@ def visited_search(
     Returns ``(d2, idx)``, (B, N) each: idx is the tiled position (map
     through ``index.perm``), -1 where nothing beats the radius, and d2 is
     then the radius. A CUDA tensor launches ``csrc/visited_search.cu``
-    (d = 3 or 6); a CPU tensor runs :func:`visited_search_plain`."""
+    (d = 3 or 6); a CPU tensor runs :func:`visited_search_plain`.
+
+    The kernel lists each pair's live rows in a scratch workspace the
+    wrapper allocates from the shapes, and walks each live query's tiles
+    in ascending order of its box bound to them, stopping once the next
+    bound exceeds its running best."""
     if queries.device.type == "cpu":
         return visited_search_plain(queries, radius, index)
     b, n = queries.shape[0], queries.shape[1]
@@ -315,11 +328,31 @@ def visited_search(
     chk("bbox_max", index.bbox_max, torch.float32, (b, n_tiles, FEATURE_PAD))
     d2 = torch.empty((b, n), dtype=torch.float32, device=queries.device)
     idx = torch.empty((b, n), dtype=torch.int32, device=queries.device)
+    ws_bytes = _visited_search_workspace_bytes(b, n, n_tiles, tile_t)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=queries.device)
     _cuda.launch(
         "visited_search", queries, radius, index.points_t3, index.bbox_min,
-        index.bbox_max, d2, idx, b, n, n_tiles, tile_t, d,
+        index.bbox_max, d2, idx, ws, ws_bytes, b, n, n_tiles, tile_t, d,
     )
     return d2, idx
+
+
+def _align16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def _visited_search_workspace_bytes(b: int, n: int, n_tiles: int, tile_t: int) -> int:
+    """Scratch bytes of one visited_search launch (the kernel's
+    ``workspace_bytes``: per-pair live counts, 16-byte aligned, then the
+    per-pair lists of live rows). Raises on a tiling the kernel does not
+    take: tile_t not a multiple of 4, a tiled index past an int32, or more
+    tiles than one warp's bounds can hold in shared memory."""
+    if tile_t < 4 or tile_t % 4 or n_tiles < 1:
+        raise ValueError(f"visited_search: tile_t must be a positive multiple of 4, got {tile_t}")
+    if n_tiles * tile_t >= 2**31 or n_tiles > VISITED_MAX_TILES:
+        raise ValueError(f"visited_search: {n_tiles} tiles of {tile_t} rows: at most "
+                         f"{VISITED_MAX_TILES} tiles and 2**31 rows")
+    return _align16(4 * b) + 4 * b * n
 
 
 def kd_radius_search_plain(q, binit, bmin, bmax, pages, sel=None):
@@ -372,15 +405,27 @@ def kd_radius_search(
     where nothing beats the radius (or the row is frozen), and d2 is then
     the radius. A CUDA tensor launches ``csrc/kd_radius_search.cu`` (D = 3
     or 6, nc <= :data:`KD_RADIUS_MAX_BLOCKS`); a CPU tensor runs
-    :func:`kd_radius_search_plain`."""
+    :func:`kd_radius_search_plain`.
+
+    The kernel walks the (row, member block) entries block-major in rounds
+    (each row's first pick, then its other picks within its running best;
+    at k = 0 the member of least bound, then the rest in spans of
+    :data:`KD_RADIUS_SPAN` blocks) in a scratch workspace the wrapper
+    allocates from the shapes."""
     if q.device.type == "cpu":
         return kd_radius_search_plain(q, binit, bmin, bmax, pages, sel)
+    return _kd_radius_search_launch(q, binit, bmin, bmax, pages, sel)
+
+
+def _kd_radius_search_launch(q, binit, bmin, bmax, pages, sel, defines=()):
+    """Check the CUDA operands and launch ``csrc/kd_radius_search.cu`` (with
+    ``defines=("RS_PROBE",)`` its staging-only measurement build, uncounted:
+    every row returns (radius, -1))."""
     b, n = q.shape[0], q.shape[1]
     d = _cuda.feature_dim("kd_radius_search", q.shape[-1])
     nc, cap_pad = pages.shape[1], pages.shape[-1]
-    if nc > KD_RADIUS_MAX_BLOCKS:
-        raise ValueError(f"kd_radius_search: at most {KD_RADIUS_MAX_BLOCKS} blocks, got {nc}")
     k = 0 if sel is None else sel.shape[-1]
+    ws_bytes = _radius_search_workspace_bytes(b, n, nc, cap_pad, k)
     chk = _cuda.check_cuda_tensor
     chk("q", q, torch.float32, (b, n, d))
     chk("binit", binit, torch.float32, (b, n))
@@ -391,9 +436,36 @@ def kd_radius_search(
         chk("sel", sel, torch.int32, (b, n, k))
     d2 = torch.empty((b, n), dtype=torch.float32, device=q.device)
     idx = torch.empty((b, n), dtype=torch.int32, device=q.device)
-    _cuda.launch("kd_radius_search", q, binit, bmin, bmax, pages, sel, d2, idx,
-                 b, n, nc, cap_pad, k, d)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=q.device)
+    _cuda.launch("kd_radius_search", q, binit, bmin, bmax, pages, sel, d2, idx, ws, ws_bytes,
+                 b, n, nc, cap_pad, k, d, defines=defines)
     return d2, idx
+
+
+def _radius_search_workspace_bytes(b: int, n: int, nc: int, cap_pad: int, k: int) -> int:
+    """Scratch bytes of one kd_radius_search launch (the kernel's
+    ``workspace_layout``: row keys, bucket counts, bucket and chunk offsets,
+    k = 0's round-0 blocks, and per (row, round slot) the block, its rank
+    and the bucketed row, each 16-byte aligned; a row gives at most k
+    entries a round, :data:`KD_RADIUS_SPAN` at k = 0). Raises on what the
+    kernel does not take: k outside [0, 16], nc outside [1,
+    :data:`KD_RADIUS_MAX_BLOCKS`], cap_pad not a positive multiple of 4, a
+    page index past an int32, or entries past an int32."""
+    if not 0 <= k <= KD_MAX_K:
+        raise ValueError(f"kd_radius_search: k must be in [0, {KD_MAX_K}], got {k}")
+    if not 1 <= nc <= KD_RADIUS_MAX_BLOCKS:
+        raise ValueError(f"kd_radius_search: at most {KD_RADIUS_MAX_BLOCKS} blocks, got {nc}")
+    if cap_pad < 4 or cap_pad % 4:
+        raise ValueError(f"kd_radius_search: cap_pad must be a positive multiple of 4, "
+                         f"got {cap_pad}")
+    slots = k if k > 0 else KD_RADIUS_SPAN
+    if nc * cap_pad >= 2**31 or b * n * slots >= 2**31:
+        raise ValueError(f"kd_radius_search: {nc} x {cap_pad} pages and {b} x {n} x {slots} "
+                         "entries must each stay below 2**31")
+    rows, nb = b * n, b * nc
+    sizes = (8 * rows, 4 * nb, 4 * (nb + 1), 4 * (nb + 1), 4 * rows,
+             4 * rows * slots, 4 * rows * slots, 4 * rows * slots)
+    return sum(_align16(x) for x in sizes)
 
 
 def bound_value(max_distance: float) -> float:

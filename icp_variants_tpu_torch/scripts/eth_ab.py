@@ -17,12 +17,14 @@ of the shared host hits both alike. A run's wall is ``run_icp_batch`` to
 host's issue time beside it.
 
 Each worker also times one ``kd_block_search`` call at the path's shapes (16
-pairs x 4,352 queries, k = 4, picks from ``box_topk``): the host's seconds
-from the call to its return (median over 15 batches of 20 calls issued back
-to back) and the call's CUDA-event ms.
+pairs x 4,352 queries, k = 4, picks from ``box_topk``) and one
+``visited_search`` call at the exact arm's fallback inputs on those queries
+(the rows whose top-4 certificate fails at the bound search within it, the
+rest frozen): the host's seconds from the call to its return (median over
+15 batches of 20 calls issued back to back) and the call's CUDA-event ms.
 
 Prints one JSON line per round and, last, a summary: per checkout and arm
-the walls, their median and pairs/s, and the kd_block_search timings. The
+the walls, their median and pairs/s, and the two kernels' timings. The
 workers' own output goes to standard error.
 """
 
@@ -42,7 +44,7 @@ QUERIES = 4352
 
 
 def _worker() -> None:
-    """Serve ``run ARM SEED``, ``issue`` and ``quit`` lines from standard
+    """Serve ``run ARM SEED``, ``issue NAME`` and ``quit`` lines from standard
     input, one JSON reply line each, for the checkout on ``sys.path``."""
     reply = os.fdopen(os.dup(1), "w", buffering=1)
     os.dup2(2, 1)
@@ -85,8 +87,13 @@ def _worker() -> None:
     binit = torch.full(q.shape[:2], knn.bound_value(cs.MAX_DISTANCE), device=dev)
     sel, _ = kdtree.box_topk(q, binit, kd.block_min, kd.block_max, 4)
 
-    def block_search():
-        kdtree.kd_block_search(q, sel, binit, kd.pages)
+    fidx = knn.build_target_index(targets.points, tile_t=knn.V2_TILE_T)
+    fail = kdtree.nn_search_kd_resident(q, kd, cs.MAX_DISTANCE)[2]
+    fradii = torch.where(fail, binit, -1.0).contiguous()
+    calls = {
+        "kd_block_search": lambda: kdtree.kd_block_search(q, sel, binit, kd.pages),
+        "visited_search": lambda: knn.visited_search(q, fradii, fidx),
+    }
 
     reply.write(json.dumps({"pairs": int(q.shape[0])}) + "\n")
     for line in sys.stdin:
@@ -99,16 +106,19 @@ def _worker() -> None:
             issue = time.perf_counter() - t0
             torch.cuda.synchronize()
             out = {"wall": time.perf_counter() - t0, "issue": issue}
-        else:  # issue
+        else:  # issue NAME
+            call = calls[cmd[1]]
             per = []
             for _ in range(15):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 for _ in range(20):
-                    block_search()
+                    call()
                 per.append((time.perf_counter() - t0) / 20)
             torch.cuda.synchronize()
-            out = {"host_s": float(np.median(per)), "ms": cs.time_ms(block_search, 20)}
+            out = {"host_s": float(np.median(per)), "ms": cs.time_ms(call, 20)}
+            if cmd[1] == "visited_search":
+                out["live_rows"] = int(fail.sum())
         reply.write(json.dumps(out) + "\n")
 
 
@@ -160,7 +170,8 @@ def main(argv=None) -> int:
                 summary[f"{side} {arm}"] = dict(
                     walls=walls[side][arm], issues=issues[side][arm], median_s=med,
                     pairs_per_s=pairs[side] / med)
-            summary[f"{side} kd_block_search"] = _ask(procs[side], "issue")
+            for name in ("kd_block_search", "visited_search"):
+                summary[f"{side} {name}"] = _ask(procs[side], f"issue {name}")
         print(json.dumps(summary), flush=True)
     finally:
         for proc in procs.values():

@@ -500,3 +500,178 @@ def test_box_topk_contract_on_card(d):
         want = tkd.box_topk_plain(*args, k)
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), k
+
+
+# ---------------------------------------------------------------------------
+# The visited search's merge and prune: ties across tiles, distances equal
+# to a radius, sparse live rows, and the kernel's contract on the card
+# ---------------------------------------------------------------------------
+
+
+def _lattice_targets(d, n, seed):
+    """Integer targets (every distance and bound exact in f32) in clumps of
+    3 x 3 x 3 lattice cells at spacing 3, ordered clump by clump so that a
+    1,024-row tile covers a few clumps, with repeated points within and
+    across tiles; at d = 6 three colour features in {0, 1} follow."""
+    rng = np.random.default_rng(seed)
+    c = rng.integers(0, 64, n)
+    c.sort()
+    centres = np.stack([(c % 4) * 3, (c // 4 % 4) * 3, (c // 16) * 3], 1)
+    t = centres + rng.integers(0, 3, (n, 3))
+    if d == 6:
+        t = np.concatenate([t, rng.integers(0, 2, (n, 3))], 1)
+    return t.astype(np.float32)
+
+
+def _lattice_queries(d, n, seed, lo=-1, hi=12):
+    rng = np.random.default_rng(seed)
+    q = rng.integers(lo, hi, (n, d)).astype(np.float32)
+    if d == 6:
+        q[:, 3:] = rng.integers(0, 2, (n, 3))
+    return q
+
+
+@pytest.mark.parametrize("d", [3, 6])
+def test_visited_search_plain_matches_visited_kernel_on_ties(d):
+    """visited_search_plain (through the port's nn_search_pruned_v2) equals
+    JAX's nn_search_pruned_v2 (per_query_bound, use_phase1=False, its
+    visited kernel in interpret mode) exactly on integer clouds: exact ties
+    across tiles go to the lowest row, a nearest point at exactly the
+    radius is no match; with one live row per 128-row query tile, and on
+    an all-frozen call. The result is also numpy's brute force."""
+    t = _lattice_targets(d, 6000, seed=110 + d)
+    q = _lattice_queries(d, 512, seed=111 + d)
+    jt = jknn.build_target_index(jnp.asarray(t), tile_t=jknn.V2_TILE_T)
+    tt = convert.target_index_from_arrays(jt, "cpu")
+    rng = np.random.default_rng(112 + d)
+    d2all = ((t[None].astype(np.float64) - q[:, None]) ** 2).sum(-1)
+    nn = d2all.min(1)
+    cases = {
+        "mixed": rng.choice([1.0, 2.0, 5.0, 30.0, 0.0, -1.0], len(q)).astype(np.float32),
+        "one_live_per_tile": np.full(len(q), -1.0, np.float32),
+        "frozen": np.full(len(q), -1.0, np.float32),
+    }
+    mixed = cases["mixed"]
+    mixed[::9] = np.where(nn[::9] > 0, nn[::9], 1.0)      # nearest point at exactly the radius
+    cases["one_live_per_tile"][5::128] = 30.0
+    for name, radius in cases.items():
+        ji, jd = (_n(x) for x in jknn.nn_search_pruned_v2(
+            jnp.asarray(q), jt, 1.0, interpret=True, tile_t=jknn.V2_TILE_T,
+            per_query_bound=jnp.asarray(radius), use_phase1=False))
+        ti, td = (x.numpy() for x in tknn.nn_search_pruned_v2(
+            torch.from_numpy(q), tt, 1.0, per_query_bound=torch.from_numpy(radius)))
+        np.testing.assert_array_equal(td, jd, err_msg=name)
+        np.testing.assert_array_equal(ti, ji, err_msg=name)
+        ok = d2all < radius[:, None]
+        want_i = np.where(ok.any(1), np.argmin(np.where(ok, d2all, np.inf), 1), -1)
+        want_d = np.where(want_i >= 0, d2all[np.arange(len(q)), np.maximum(want_i, 0)], radius)
+        np.testing.assert_array_equal(ti, want_i, err_msg=name)
+        np.testing.assert_array_equal(td, want_d.astype(np.float32), err_msg=name)
+        if name == "mixed":
+            tiles_tied = [len(set(np.flatnonzero(d2all[i] == nn[i]) // jknn.V2_TILE_T))
+                          for i in range(len(q))]
+            assert (np.array(tiles_tied) > 1).sum() > 10       # ties across tiles
+            assert ((ti < 0) & (radius > 0) & (nn == radius)).sum() > 10
+        if name == "frozen":
+            assert (ti == -1).all() and np.array_equal(td, radius)
+
+
+@pytest.mark.parametrize("b,n,n_tiles,tile_t", [
+    (4, 1_000_192, 977, 1024), (16, 4352, 357, 1024), (3, 4097, 1, 4)])
+def test_visited_search_workspace_bytes(b, n, n_tiles, tile_t):
+    """The wrapper's scratch size is the kernel's: per-pair live counts,
+    16-byte aligned, then a live-row list per pair."""
+    assert tknn._visited_search_workspace_bytes(b, n, n_tiles, tile_t) == (
+        -(-4 * b // 16) * 16 + 4 * b * n)
+
+
+def test_visited_search_workspace_bytes_refuses():
+    """Tilings the kernel does not take are refused before any launch."""
+    ws = tknn._visited_search_workspace_bytes
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ws(1, 8, 4, 1022)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ws(1, 8, 0, 1024)
+    with pytest.raises(ValueError, match="at most"):
+        ws(1, 8, tknn.VISITED_MAX_TILES + 1, 4)
+    with pytest.raises(ValueError, match="at most"):
+        ws(1, 8, 2**21, 1024)
+
+
+def _visited_contract_inputs(d, n_t, seed, dev="cuda"):
+    """On ``dev``: B = 3 pairs of N = 4,097 query rows against n_t integer
+    targets each (tiles of 1,024 rows; the last tile padded), the queries
+    reaching 3 cells past the cloud on every side (so many answers lie on
+    a tile's box at its bound). Pair 0: radii
+    1, 2, 5, 30, 0 and -1, every 9th row's radius its exact nearest
+    distance; pair 1 all frozen; pair 2 one live row among 4,096 frozen."""
+    b, n = 3, 4097
+    t = np.stack([_lattice_targets(d, n_t, seed + i) for i in range(b)])
+    q = np.stack([_lattice_queries(d, n, seed + 10 + i, -3, 15) for i in range(b)])
+    rng = np.random.default_rng(seed + 20)
+    radius = rng.choice([1.0, 2.0, 5.0, 30.0, 0.0, -1.0], (b, n)).astype(np.float32)
+    nn = ((t[0][None].astype(np.float64) - q[0][::9, None]) ** 2).sum(-1).min(1)
+    radius[0, ::9] = np.where(nn > 0, nn, 1.0)
+    radius[1] = -1.0
+    radius[2] = -1.0
+    radius[2, 3001] = 30.0
+    dev = torch.device(dev)
+    fi = tknn.build_target_index(torch.from_numpy(t).to(dev), tile_t=tknn.V2_TILE_T)
+    return torch.from_numpy(q).to(dev), torch.from_numpy(radius).to(dev), fi
+
+
+def _visited_prune_ties(q, fi, want):
+    """Pair 0's rows whose answer lies in a tile whose box bound equals the
+    answer's d2, while a tile of smaller bound (walked before it, and at
+    higher indices) holds a point at that d2 too. Once that tile is walked
+    the row's best equals the answer's tile's bound: an exact walk must not
+    stop there (a stop on bound >= best would)."""
+    d = q.shape[-1]
+    d2, idx = (x[0].cpu().numpy() for x in want)
+    tmin, tmax = (x[0, :, :d].cpu().numpy() for x in (fi.bbox_min, fi.bbox_max))
+    pts = fi.points_t3[0, :, :d].cpu().numpy()                      # (n_tiles, d, tile_t)
+    tile_t = pts.shape[-1]
+    qn = q[0].cpu().numpy()
+    gap = np.maximum(np.maximum(tmin[None] - qn[:, None], qn[:, None] - tmax[None]), 0)
+    lb = (gap * gap).sum(-1)                                        # exact on integers
+    rows = np.flatnonzero(idx >= 0)
+    rows = rows[lb[rows, idx[rows] // tile_t] == d2[rows]]
+    count = 0
+    for r in rows:
+        before = np.flatnonzero(lb[r] < d2[r])
+        dd = ((pts[before] - qn[r][None, :, None]) ** 2).sum(1)      # (m, tile_t)
+        count += bool((dd == d2[r]).any())
+    return count
+
+
+@pytest.mark.parametrize("d", [3, 6])
+@pytest.mark.parametrize("n_t", [6000, 40000])
+def test_visited_contract_inputs_hold_prune_ties(d, n_t):
+    """The card contract test's inputs (built here on the CPU) hold rows
+    whose answer lies in a tile whose bound equals the best after an
+    earlier-walked tile (see _visited_prune_ties)."""
+    q, radius, fi = _visited_contract_inputs(d, n_t, seed=120 + d, dev="cpu")
+    want = tknn.visited_search_plain(q, radius, fi)
+    assert _visited_prune_ties(q, fi, want) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 6])
+def test_visited_search_contract_on_card(d):
+    """The compacted, pruned visited_search equals its plain version on
+    exact ties across tiles, nearest distances equal to the radius, tiles
+    whose bound equals a row's best (rows that hold a tie there are
+    asserted present), all-frozen pairs, one live row among 4,096 frozen
+    ones, 6 and 40 tiles (fewer and more than a warp's lanes), and B = 3
+    with N not a multiple of any launch width."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for n_t in (6000, 40000):
+        q, radius, fi = _visited_contract_inputs(d, n_t, seed=120 + d)
+        want = tknn.visited_search_plain(q, radius, fi)
+        got = tknn.visited_search(q, radius, fi)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), n_t
+        assert bool((want[1][0] >= 0).any()) and bool((want[1][0] < 0).any())
+        assert bool((want[1][1] < 0).all()) and int((want[1][2] >= 0).sum()) == 1
+        assert _visited_prune_ties(q, fi, want) > 0, n_t

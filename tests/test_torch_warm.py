@@ -563,3 +563,263 @@ def test_kd_radius_search_matches_plain_on_card(d):
             assert torch.equal(got[0], want[0]), (n_t, k)
             assert torch.equal(got[1], want[1]), (n_t, k)
             assert bool((got[1] >= 0).any()) and bool((got[1] < 0).any())
+
+
+# ---------------------------------------------------------------------------
+# The radius search's merge and prune: ties, bounds equal to a radius or a
+# best, and the kernel's contract on the card
+# ---------------------------------------------------------------------------
+
+
+def _grid_cloud(d, n_blocks, per, seed):
+    """Integer points (every distance and bound exact in f32, so JAX's
+    fused sums equal the port's and ties are exact) in clumps of 3 x 3 x 3
+    lattice cells at spacing 3, repeated points within and across clumps;
+    at d = 6 three colour features in {0, 1} follow."""
+    rng = np.random.default_rng(seed)
+    c = np.arange(n_blocks)
+    centres = np.stack([(c % 4) * 3, (c // 4 % 4) * 3, (c // 16) * 3], 1)
+    pts = (centres[:, None, :] + rng.integers(0, 3, (n_blocks, per, 3))).reshape(-1, 3)
+    if d == 6:
+        pts = np.concatenate([pts, rng.integers(0, 2, (len(pts), 3))], 1)
+    return pts.astype(np.float32)
+
+
+def _grid_queries(d, n, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-1, 11, (n, d)).astype(np.float32)
+    if d == 6:
+        q[:, 3:] = rng.integers(0, 2, (n, 3))
+    return q
+
+
+def _radius_reference(q, radius, bmin, bmax, pages, members):
+    """numpy: per row, the least d2 strictly below the radius over the
+    points of its member blocks (``members`` (N, nc) bool), the lowest page
+    index among equals; (radius, -1) where none. Also the number of member
+    points at that d2 and whether the lowest-index one lies in a block that
+    is not the row's first member."""
+    d, cap_pad = q.shape[1], pages.shape[-1]
+    pts = pages[:, :d].transpose(0, 2, 1).reshape(-1, d)            # (nc * cap_pad, d)
+    d2 = None
+    for j in range(d):
+        diff = pts[None, :, j] - q[:, None, j]
+        d2 = diff * diff if d2 is None else d2 + diff * diff          # f32, exact on integers
+    ok = np.repeat(members, cap_pad, axis=1) & (d2 < radius[:, None])
+    d2 = np.where(ok, d2, np.inf)
+    idx = np.argmin(d2, axis=1)
+    best = d2[np.arange(len(q)), idx]
+    found = np.isfinite(best)
+    n_tied = (d2 == best[:, None]).sum(1) * found
+    return (np.where(found, best, radius).astype(np.float32),
+            np.where(found, idx, -1).astype(np.int32), n_tied)
+
+
+@pytest.mark.parametrize("d", [3, 6])
+@pytest.mark.parametrize("k", [0, 4])
+def test_kd_radius_search_plain_ties_match_bitmap_kernel(d, k):
+    """On integer clouds, kd_radius_search_plain equals JAX's bitmap route
+    (_kd_bitmap_search in interpret mode) in d2 on every row, and wherever
+    the two indices differ both points lie at that d2; the plain version's
+    index is the lowest page index among the member points at the least d2
+    strictly below the radius (a numpy brute force), with exact ties where
+    a later pick holds the lower index, rows whose nearest point lies at
+    exactly the radius (no match), and picks whose bound equals the
+    radius (members)."""
+    maxd = 100.0
+    t = _grid_cloud(d, 8, 600, seed=90 + d)
+    q = _grid_queries(d, 400, seed=91 + d)
+    jidx = jkd.build_kd_index(t, block_target=256)
+    tidx = convert.kd_index_from_arrays(jidx, "cpu")
+    qt = torch.from_numpy(q)[None]
+    bmin, bmax = tidx.block_min[None], tidx.block_max[None]
+    lb = tknn.box_lb(qt, bmin, bmax)[0].numpy()
+    rng = np.random.default_rng(92 + d + k)
+    radius = rng.choice([1.0, 2.0, 5.0, 9.0, -1.0], len(q)).astype(np.float32)
+    # Every sixth row: the radius equal to the bound of its second-nearest block.
+    second = np.sort(lb, axis=1)[:, 1]
+    rows_eq = np.arange(0, len(q), 6)
+    radius[rows_eq] = np.where(second[rows_eq] > 0, second[rows_eq], radius[rows_eq])
+    ji, jd, _ = (_n(x) for x in jkd._kd_bitmap_search(
+        jnp.asarray(q), jidx, maxd, jnp.asarray(radius), k=k, impl="bitmap", interpret=True,
+        orig_map=False))
+    binit = torch.clamp(torch.from_numpy(radius), max=tknn.bound_value(maxd))[None]
+    sel = tkd.box_topk(qt, binit, bmin, bmax, k)[0] if k else None
+    td, ti = (x[0].numpy() for x in tknn.kd_radius_search_plain(
+        qt, binit, bmin, bmax, tidx.pages[None], sel))
+    np.testing.assert_array_equal(td, jd)
+    pts = tidx.pages.numpy()[:, :d].transpose(0, 2, 1).reshape(-1, d)
+    diff = np.flatnonzero(ti != ji)
+    assert ((ti >= 0) == (ji >= 0)).all()
+    for idx in (ti[diff], ji[diff]):
+        np.testing.assert_array_equal(((pts[idx] - q[diff]) ** 2).sum(1), td[diff])
+
+    nc = lb.shape[1]
+    r = binit[0].numpy()
+    if k:
+        s = sel[0].numpy()
+        members = np.zeros((len(q), nc), bool)
+        for p in range(k):
+            ok = s[:, p] >= 0
+            members[np.flatnonzero(ok), s[ok, p]] = True
+    else:
+        members = lb <= r[:, None]
+    rd, ri, n_tied = _radius_reference(q, r, *(x[0].numpy() for x in (bmin, bmax)),
+                                       tidx.pages.numpy(), members)
+    np.testing.assert_array_equal(td, rd)
+    np.testing.assert_array_equal(ti, ri)
+    # The cases the kernel's merge and prune must keep are in the data.
+    if k:
+        later = (ti >= 0) & (ti // tidx.pages.shape[-1] != s[:, 0]) & (n_tied > 1)
+        assert later.sum() > 0
+    at_radius = (ti < 0) & (r > 0) & members.any(1)
+    pd = np.where(np.repeat(members, tidx.pages.shape[-1], axis=1),
+                  ((pts[None] - q[:, None]) ** 2).sum(-1), np.inf).min(1)
+    assert (at_radius & (pd == r)).sum() > 0
+    assert ((lb == r[:, None]) & members).any(1).sum() > 0
+    assert (n_tied > 1).sum() > 10
+
+
+@pytest.mark.parametrize("b,n,nc,cap_pad,k", [
+    (4, 1_000_192, 512, 2048, 4), (1, 1_000_192, 512, 2048, 0), (3, 4097, 1024, 64, 16),
+    (16, 4352, 128, 2944, 1)])
+def test_radius_search_workspace_bytes(b, n, nc, cap_pad, k):
+    """The wrapper's scratch size is the kernel's layout: row keys, bucket
+    counts, bucket and chunk offsets, round-0 blocks, and three int arrays
+    of (row, round slot) entries, each 16-byte aligned."""
+    slots = k if k else tknn.KD_RADIUS_SPAN
+    a16 = lambda x: -(-x // 16) * 16  # noqa: E731
+    want = (a16(8 * b * n) + a16(4 * b * nc) + 2 * a16(4 * (b * nc + 1)) + a16(4 * b * n)
+            + 3 * a16(4 * b * n * slots))
+    assert tknn._radius_search_workspace_bytes(b, n, nc, cap_pad, k) == want
+
+
+def test_radius_search_workspace_bytes_refuses():
+    """Shapes the kernel does not take are refused before any launch."""
+    ws = tknn._radius_search_workspace_bytes
+    with pytest.raises(ValueError, match="k must be"):
+        ws(1, 8, 8, 128, 17)
+    with pytest.raises(ValueError, match="k must be"):
+        ws(1, 8, 8, 128, -1)
+    with pytest.raises(ValueError, match="at most"):
+        ws(1, 8, tknn.KD_RADIUS_MAX_BLOCKS + 1, 128, 4)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ws(1, 8, 8, 130, 4)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        ws(1, 8, 1024, 2**21, 4)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        ws(64, 2**21, 512, 2048, 16)
+
+
+def _radius_contract_inputs(d, k, nc, seed, dev="cuda"):
+    """Integer pages on ``dev``: B = 3 pairs of N = 4,097 rows (not a
+    multiple of 32, 64, 256 or 512) over nc blocks of 64 slots laid out on
+    a lattice (clumps at spacing 3), boxes the min / max over every slot
+    (so a box bound holds for each slot). Pair 0: radii 1, 2, 5, 9 (equal
+    to many distances and bounds), 0 and -1, and every 7th row's radius
+    the bound of its second-nearest box; pair 1 all frozen; pair 2 one live row
+    among 4,096 frozen. Picks (k > 0): the k nearest boxes, shuffled (a
+    later pick may hold the lower index), with repeats, ids past nc - 1
+    and -1; pair 0's rows mostly pick a handful of blocks (buckets far past
+    one chunk)."""
+    rng = np.random.default_rng(seed)
+    b, n, cap_pad = 3, 4097, 64
+    c = np.arange(nc)
+    centres = np.stack([(c % 8) * 3, (c // 8 % 8) * 3, (c // 64) * 3], 1)
+    pts = centres[:, None, :] + rng.integers(0, 3, (nc, cap_pad, 3))
+    if d == 6:
+        pts = np.concatenate([pts, rng.integers(0, 2, (nc, cap_pad, 3))], -1)
+    pages = np.zeros((b, nc, 8, cap_pad), np.float32)
+    pages[:, :, :d] = pts.transpose(0, 2, 1)
+    bmin = np.broadcast_to(pts.min(1), (b, nc, d)).astype(np.float32).copy()
+    bmax = np.broadcast_to(pts.max(1), (b, nc, d)).astype(np.float32).copy()
+    q = rng.integers(-1, 8, (b, n, d)).astype(np.float32)
+    if d == 6:
+        q[..., 3:] = rng.integers(0, 2, (b, n, 3))
+    radius = rng.choice([1.0, 2.0, 5.0, 9.0, 0.0, -1.0], (b, n)).astype(np.float32)
+    radius[1] = -1.0
+    radius[2] = -1.0
+    radius[2, 2049] = 9.0
+    dev = torch.device(dev)
+    qt, bmin_t, bmax_t = (torch.from_numpy(a).to(dev) for a in (q, bmin, bmax))
+    lb = tknn.box_lb(qt, bmin_t, bmax_t)                       # (B, N, nc)
+    lb_sorted, order = (x.cpu().numpy() for x in torch.sort(lb, dim=-1, stable=True))
+    second = lb_sorted[0, ::7, 1]                              # the second-nearest box's bound
+    radius[0, ::7] = np.where(second > 0, second, radius[0, ::7])
+    sel = None
+    if k:
+        sel = rng.permuted(order[..., :k], axis=-1).astype(np.int32)
+        if k > 1:
+            sel[:, 1::5, -1] = sel[:, 1::5, 0]
+        sel[:, 2::9, 0] = nc + 2
+        sel[:, ::11] = -1
+        sel = torch.from_numpy(sel).to(dev)
+    r = torch.from_numpy(radius).to(dev)
+    return qt, r, bmin_t, bmax_t, torch.from_numpy(pages).to(dev), sel
+
+
+def _radius_prune_ties(args, want):
+    """Pair 0's rows whose answer lies in a block walked after the row's
+    first one (k > 0: not its pick 0; k = 0: not its member of least bound,
+    lowest id on ties), whose box bound equals the answer's d2, while the
+    first block holds a point at that d2 too (so at a higher page index).
+    After the first round such a row's best equals that block's bound: an
+    exact kernel must neither prune the block (a skip on lb >= best would)
+    nor pass over the tie (a restart at the best itself would)."""
+    q, r, bmin, bmax, pages, sel = (None if x is None else x[:1].cpu() for x in args)
+    d2, idx = (x[0].cpu().numpy() for x in want)
+    nc, cap_pad, d = pages.shape[1], pages.shape[-1], q.shape[-1]
+    lb = tknn.box_lb(q, bmin, bmax)[0].numpy()                  # (N, nc)
+    if sel is not None:
+        first = sel[0, :, 0].numpy()
+        first = np.where(first < 0, -1, np.minimum(first, nc - 1))
+    else:
+        first = np.where(lb.min(1) <= r[0].numpy(), np.argmin(lb, 1), -1)
+    rows = np.flatnonzero((idx >= 0) & (first >= 0) & (idx // cap_pad != first))
+    rows = rows[lb[rows, idx[rows] // cap_pad] == d2[rows]]
+    pts = pages[0].numpy()[first[rows], :d]                     # (m, d, cap_pad)
+    qr = q[0].numpy()[rows]
+    d2f = None
+    for j in range(d):
+        diff = pts[:, j] - qr[:, j, None]
+        d2f = diff * diff if d2f is None else d2f + diff * diff
+    return int((d2f == d2[rows, None]).any(1).sum())
+
+
+@pytest.mark.parametrize("d", [3, 6])
+@pytest.mark.parametrize("k", [0, 4, 16])
+@pytest.mark.parametrize("nc", [16, 1024])
+def test_radius_contract_inputs_hold_prune_ties(d, k, nc):
+    """The card contract test's inputs (built here on the CPU, pair 0)
+    hold rows whose answer is a tie in a later-walked block whose bound
+    equals the row's best after its first block (see _radius_prune_ties).
+    k = 1 walks one block a row, so it has no such row."""
+    args = _radius_contract_inputs(d, k, nc, seed=100 + d + k + nc, dev="cpu")
+    pair0 = tuple(None if x is None else x[:1] for x in args)
+    want = tknn.kd_radius_search_plain(*pair0)
+    assert _radius_prune_ties(pair0, want) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 6])
+@pytest.mark.parametrize("k", [0, 1, 4, 16])
+def test_kd_radius_search_contract_on_card(d, k):
+    """The block-major kd_radius_search equals its plain version on ties
+    across picks and within a block, distances and bounds equal to the
+    radius or to a row's best (rows that hold such a tie in a later-walked
+    block are asserted present, k != 1), repeated, clipped and -1 picks,
+    all-frozen pairs, one live row among 4,096 frozen ones, buckets far past
+    one chunk, nc = 16 and nc = 1,024, and B = 3 with N not a multiple of
+    any launch width."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for nc in (16, 1024):
+        args = _radius_contract_inputs(d, k, nc, seed=100 + d + k + nc)
+        want = tknn.kd_radius_search_plain(*args)
+        got = tknn.kd_radius_search(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), nc
+        assert bool((want[1][0] >= 0).any()) and bool((want[1][0] < 0).any())
+        assert bool((want[1][1] < 0).all()) and int((want[1][2] >= 0).sum()) <= 1
+        if k != 1:
+            assert _radius_prune_ties(args, want) > 0, nc
