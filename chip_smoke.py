@@ -41,7 +41,8 @@ Phases, in order; any failure exits nonzero:
    (-1 rows included; the plain versions in windows of rows;
    visited_search at the exact arm's real fallback radii, and all rows live
    on a subset), each timed there, kd_block_search's lane use read as in
-   phase 2; then timed runs in turns (median
+   phase 2, cached_block_search's time split by launch (bucketing, walk,
+   out; ``torch.profiler``); then timed runs in turns (median
    frames/s, launches on each arm's first), one profiled run per arm, the
    mean translation / rotation error against the known camera shifts
    (gated at 1 cm and at a tighter gate set from the card's readings), the
@@ -60,8 +61,10 @@ Phases, in order; any failure exits nonzero:
    iterations, squared max distance 0.1; arms linear point-to-plane and LM
    point-to-point. The window search against its plain version on every
    row at the identity pose, at the linear warm-up's final poses and on 512
-   rows per frame at and past the image edges, timed there; against a
-   float64 window scan on 4,096 rows of frame 0; timed runs in turns
+   rows per frame at and past the image edges, timed there and split by
+   cause (window loads, from the ``-DPWS_LOADS_ONLY`` build, and
+   distances); against a float64 window scan on 4,096 rows of frame 0;
+   timed runs in turns
    (median frames/s, launches on each arm's first), one profiled run per
    arm; gates: mean t_err within 2 cm, every frame's final translation
    within 2e-5 m of the JAX package's CPU reading, and the fixed point (one
@@ -102,7 +105,8 @@ Phases, in order; any failure exits nonzero:
    at max_distance 10 and 0.01 and on the colour frame at 0.1, against its
    plain version and cKDTree; cached_block_search's pose mode at the
    colour checks16 arm's fine level (raw features, the warm-up's final
-   poses) against its plain version and transform-then-search.
+   poses) against its plain version and transform-then-search, its time
+   split by launch.
 8. Tooling: the measurement tools at full width. The fused stage profiler
    (``profiling.fused_report``: the driver's ``stop_after`` probes, stage
    differencing on the host's clock and on the card's kernel time, the
@@ -459,6 +463,34 @@ def profile_run(fn, wall_s: float, top: int = 8) -> dict:
         "device_ms_by_kernel": dict(by_name.most_common(top)),
         "device_ms_by_port_kernel": dict(by_port),
     }
+
+
+def kernel_split(fn, prefix, reps=5) -> dict:
+    """Device ms per launch of each ``__global__`` named ``<prefix>_<part>``
+    over ``reps`` calls of ``fn`` under ``torch.profiler`` (after one
+    warm-up call): a kernel of several launches, each once a call, split by
+    launch. Divided by the launches the profiler recorded (late in a long
+    run it may drop some events). Raises :class:`Failure` if it sees none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, count = collections.Counter(), collections.Counter()
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and prefix + "_" in e.key:
+            part = e.key.split(prefix + "_", 1)[1].split("<")[0].split("(")[0]
+            us[part] += e.self_device_time_total
+            count[part] += e.count
+    out = {part: us[part] / 1e3 / count[part] for part in us}
+    if not out:
+        raise Failure(f"{prefix}: the profiler saw no launch of its kernels")
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -1060,6 +1092,13 @@ def color_phase():
         bound=bound(b * n * (d + 1 + 2) * 4 + int(real_a[used].sum()) * d * 4, row_pts * 3 * d))
     print(f"  cached_block_search: {int(has.sum())} seeded rows, {row_pts} real points "
           f"searched, {int(used.sum())} distinct (frame, block)")
+    split = kernel_split(lambda: kdtree.nn_search_kd_cached(q_ap, ka, TUM_MAX_DISTANCE, blk),
+                         "cached_block_search")
+    rows["cached_block_search"]["split_ms"] = split
+    print("  cached_block_search by launch (profiler, ms a launch): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items()), flush=True)
+    check(set(split) == {"bin", "scan", "scatter", "walk", "out"},
+          "cached_block_search: the profiler reads its five launches (bucketing, walk, out)")
     del ci_k, cd_k, ci_p, cd_p
 
     # The fallback search: all rows live on a subset of each frame, and at
@@ -1441,7 +1480,7 @@ def projective_phase():
     row and the launches of its main-path runs. Raises :class:`Failure`."""
     import torch
 
-    from icp_variants_tpu_torch.ops import projective
+    from icp_variants_tpu_torch.ops import _cuda, projective
     from icp_variants_tpu_torch.pipeline import icp
 
     dev = torch.device("cuda")
@@ -1505,6 +1544,23 @@ def projective_phase():
     print(f"  projective_window_search: kernel {ms:.4f} ms, plain {row['plain_ms']:.4f} ms, "
           f"bound {row['bound'][0]:.5f} ms ({row['bound'][1]}); {float(need.float().mean()):.1f} "
           f"valid pixels per window on average", flush=True)
+
+    # Split by cause: the -DPWS_LOADS_ONLY build reads the same window rows
+    # and takes no distance (its launches are not counted).
+    def loads_only():
+        idx = torch.empty((b, n), dtype=torch.int32, device=dev)
+        d2 = torch.empty((b, n), dtype=torch.float32, device=dev)
+        _cuda.launch("projective_window_search", q_fin, pix_fin, tp, tv, d2, idx, b, n, TUM_W,
+                     TUM_H, PROJ_WINDOW, projective.BLOCK, defines=("PWS_LOADS_ONLY",))
+        return idx
+
+    check(bool((loads_only() == -1).all()),
+          "projective_window_search, loads-only build: no row matched (idx -1 everywhere)")
+    loads_ms = time_ms(loads_only, 20)
+    row["split_ms"] = dict(loads=loads_ms, distance=ms - loads_ms)
+    print(f"  projective_window_search by cause: window loads {loads_ms:.4f} ms (the "
+          f"-DPWS_LOADS_ONLY build), distances and the warp's reduction {ms - loads_ms:.4f} ms",
+          flush=True)
 
     # ---- independent check: a float64 window scan on 4,096 rows of frame 0 --
     rows = torch.nonzero(sources.valid[0]).flatten()
@@ -2314,6 +2370,11 @@ def matcher_phase(colour):
     print(f"  cached_block_search with pose=: kernel {pose_row['ms']:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {pose_row['bound'][0]:.5f} ms ({pose_row['bound'][1]})",
           flush=True)
+    pose_row["split_ms"] = kernel_split(
+        lambda: kdtree.nn_search_kd_cached(raw, ka, TUM_MAX_DISTANCE, blk, pose=pose),
+        "cached_block_search")
+    print("  cached_block_search with pose= by launch (profiler, ms a launch): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in pose_row["split_ms"].items()), flush=True)
     del raw, pi, pd, pi_p, pd_p, ti, td
     pose_row["launches"] = pose_launches
     rows["cached_block_search_pose"] = pose_row
@@ -2623,15 +2684,18 @@ def record(rows_eth, launches_eth, rows, launches) -> None:
             max_abs_err=max(c["err"], e["err"] if e else 0.0), ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound"][0], bound_by=c["bound"][1],
             library_ms=None, shapes=c["shapes"], plain_on=c["plain_on"])
+        if name in ("kd_block_search", "cached_block_search"):
+            entry["shared_source"] = "icp_variants_tpu_torch/csrc/block_major.cuh"
         if name == "cached_block_search":
             entry["also_replaces"] = ("icp_variants_tpu/ops/knn.py:1321 (restrict_col and "
                                       "transform_pose modes)")
+            entry["split_ms"] = c["split_ms"]
             p = rows["cached_block_search_pose"]
             entry["transform_pose"] = dict(
                 ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound"][0],
                 bound_by=p["bound"][1], max_abs_err=p["err"], shapes=p["shapes"],
                 launches=p["launches"], launches_on="phase 7's direct call: no pipeline path "
-                "runs the pose mode")
+                "runs the pose mode", split_ms=p["split_ms"])
         if name == "dense_nn_search":
             entry["launches_on"] = "the profile path: profile_stages at ETH and colour width"
             col = rows["dense_nn_search_colour"]
@@ -2649,6 +2713,7 @@ def record(rows_eth, launches_eth, rows, launches) -> None:
                                   visited_cells=r["visited_cells"])
         if name == "projective_window_search":
             entry["mode"] = "pixel_window"
+            entry["split_ms"] = c["split_ms"]
         if name == "kd_radius_search":
             entry["max_abs_err"] = max(c["err"], rows["kd_radius_search_d6"]["err"])
             entry["colour"] = {key: rows["kd_radius_search_d6"][key]

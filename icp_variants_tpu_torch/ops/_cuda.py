@@ -61,7 +61,7 @@ KERNELS = {
         [_P] * 8 + [ctypes.c_longlong] + [_I] * 5 + [_P]),
     "cached_block_search": (
         "cached_block_search.cu", "cached_block_search_launch",
-        [_P, _P, _P, _F] + [_P] * 3 + [_I] * 5 + [_P]),
+        [_P, _P, _P, _F] + [_P] * 4 + [ctypes.c_longlong] + [_I] * 5 + [_P]),
     "kd_radius_search": (
         "kd_radius_search.cu", "kd_radius_search_launch",
         [_P] * 9 + [ctypes.c_longlong] + [_I] * 6 + [_P]),

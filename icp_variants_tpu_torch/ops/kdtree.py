@@ -277,7 +277,8 @@ def box_topk(
 
 
 def _block_search_workspace_bytes(b: int, n: int, nc: int, k: int) -> int:
-    """Scratch bytes of one kd_block_search launch (the kernel's
+    """Scratch bytes of one kd_block_search launch, or of one
+    cached_block_search launch at k = 1 (``csrc/block_major.cuh``'s
     ``workspace_layout``: row keys, bucket counts and offsets, chunk
     offsets, entry ranks and the bucketed entries, each 16-byte aligned)."""
     rows, nb = b * n, b * nc
@@ -736,7 +737,9 @@ def nn_search_kd_cached(
     search moves their three spatial columns by ``R p + t`` itself (the
     JAX package's in-kernel transform); the other features pass through.
     A CUDA tensor launches ``csrc/cached_block_search.cu`` (D = 3 or 6,
-    from the index); a CPU tensor runs :func:`nn_search_kd_cached_oracle`."""
+    from the index): :func:`kd_block_search`'s block-major machinery at
+    k = 1 from the common bound, in a workspace sized as its own; a CPU
+    tensor runs :func:`nn_search_kd_cached_oracle`."""
     if queries.device.type == "cpu":
         return nn_search_kd_cached_oracle(queries, index, max_distance, blk_ids, pose=pose)
     batched, (q, index, blk) = knn._batch_args(queries, index, blk_ids)
@@ -754,8 +757,10 @@ def nn_search_kd_cached(
         chk("pose", pose, torch.float32, (b, 4, 4))
     d2 = torch.empty((b, n), dtype=torch.float32, device=q.device)
     idx = torch.empty((b, n), dtype=torch.int32, device=q.device)
+    ws_bytes = _block_search_workspace_bytes(b, n, nc, 1)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=q.device)
     _cuda.launch("cached_block_search", q, blk, pose, knn.bound_value(max_distance),
-                 index.pages, d2, idx, b, n, nc, cap_pad, d)
+                 index.pages, d2, idx, ws, ws_bytes, b, n, nc, cap_pad, d)
     return (idx, d2) if batched else (idx[0], d2[0])
 
 

@@ -1,25 +1,31 @@
-"""Time variants of kd_block_search's walk against this checkout's build.
+"""Time variants of the block-major kd search against this checkout's build.
 
     python3 -m icp_variants_tpu_torch.scripts.kd_variants unroll=1 d3=128x1 d6=256x2 ...
 
 Run from the repository root, on the card. Each variant is a copy of
-``csrc/`` with one edit to ``kd_block_search.cu``:
+``csrc/`` with one edit to ``block_major.cuh`` (the machinery that
+``kd_block_search.cu`` and ``cached_block_search.cu`` share):
 
 * ``unroll=N``: the walk's slot loop unrolled N deep (its ``#pragma unroll``);
-* ``d3=CxQ`` / ``d6=CxQ``: the launch shape ``KdbShape<3>`` / ``KdbShape<6>``,
-  C entries of a bucket per CTA and Q queries per thread (C <= 256 Q).
+* ``d3=CxQ`` / ``d6=CxQ``: the kd search's launch shape ``KdbShape<3, false>``
+  / ``KdbShape<6, false>``, C entries of a bucket per CTA and Q queries per
+  thread (C <= 256 Q); ``s3=CxQ`` / ``s6=CxQ``: the seeded search's
+  (``KdbShape<D, true>``).
 
-Every variant is built (one ``nvcc`` each, all at once, ``_cuda``'s flags)
-into ``build/kd_variants/<name>/`` and launched through its own library with
-the production C entry. The inputs are the main paths' shapes, made as
-``chip_smoke.py`` makes them: ETH (D = 3; 16 pairs of 365,000 points, 4,352
-queries a pair taken at a stride from the sources, k = 4) and colour (D = 6;
-8 frames x 307,200 fine-level rows at the identity pose, the exact arm's kd
-index, k = 4), every row from the bound. Per input, each build's result must
-equal the production build's; then all builds are timed in ``--rounds``
-rounds of alternating order (``chip_smoke.time_ms``, CUDA events, median of
-``--reps``). Prints each walk's ptxas register line and one JSON line per
-input: the ms of every round per build.
+Every variant's two sources are built (one ``nvcc`` each, all at once,
+``_cuda``'s flags) into ``build/kd_variants/<name>/`` and launched through
+their own libraries with the production C entries. The inputs are the main
+paths' shapes, made as ``chip_smoke.py`` makes them: ETH (D = 3; 16 pairs
+of 365,000 points, 4,352 queries a pair taken at a stride from the
+sources, k = 4), colour (D = 6; 8 frames x 307,200 fine-level rows at the
+identity pose, the exact arm's kd index, k = 4), both through
+kd_block_search from the bound, and colour seeded (the same rows on the
+checks16 arm's 256-block index, each seeded with its top-1 block, through
+cached_block_search: k = 1 from the common bound). Per input, each build's
+result must equal the production build's; then all builds are timed in
+``--rounds`` rounds of alternating order (``chip_smoke.time_ms``, CUDA
+events, median of ``--reps``). Prints each walk's ptxas register line and
+one JSON line per input: the ms of every round per build.
 """
 
 from __future__ import annotations
@@ -41,46 +47,52 @@ _SLOT_LOOP = re.compile(r"#pragma unroll \d+(\n\s*for \(int s4 )")
 
 
 def _edit(src: str, spec: str) -> str:
-    """``kd_block_search.cu``'s text with the edit ``spec`` applied."""
+    """``block_major.cuh``'s text with the edit ``spec`` applied."""
     key, val = spec.split("=")
     if key == "unroll":
         out, n = _SLOT_LOOP.subn(rf"#pragma unroll {int(val)}\1", src)
-    elif key in ("d3", "d6"):
+    elif key in ("d3", "d6", "s3", "s6"):
         chunk, q = (int(v) for v in val.split("x"))
-        d = key[1]
+        d, seeded = key[1], "true" if key[0] == "s" else "false"
         out, n = re.subn(
-            rf"(struct KdbShape<{d}> \{{ static constexpr int chunk = )\d+(, queries = )\d+",
-            rf"\g<1>{chunk}\g<2>{q}", src)
+            rf"(struct KdbShape<{d}, {seeded}> \{{ static constexpr int chunk = )\d+"
+            rf"(, queries = )\d+", rf"\g<1>{chunk}\g<2>{q}", src)
     else:
         raise ValueError(f"unknown variant {spec!r}")
     if n != 1:
-        raise ValueError(f"variant {spec!r}: its line is not in kd_block_search.cu")
+        raise ValueError(f"variant {spec!r}: its line is not in block_major.cuh")
     return out
 
 
+_ENTRIES = {"kd": "kd_block_search", "cached": "cached_block_search"}
+
+
 def _build(specs: list[str]) -> dict:
-    """Build every variant; returns name -> typed C entry."""
+    """Build every variant; returns name -> {"kd": C entry, "cached": C
+    entry}, typed as ``_cuda.KERNELS`` types them."""
     root = _cuda.BUILD_DIR.parent / "kd_variants"
-    src = (_cuda.CSRC / "kd_block_search.cu").read_text()
+    src = (_cuda.CSRC / "block_major.cuh").read_text()
     procs = {}
     for spec in specs:
         d = root / spec.replace("=", "_")
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(_cuda.CSRC, d / "csrc")
-        (d / "csrc" / "kd_block_search.cu").write_text(_edit(src, spec))
-        cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(d / "csrc"), "-o", str(d / "kdb.so"),
-               str(d / "csrc" / "kd_block_search.cu")]
-        procs[spec] = (d, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT, text=True))
-    fns = {}
-    for spec, (d, proc) in procs.items():
+        (d / "csrc" / "block_major.cuh").write_text(_edit(src, spec))
+        for key, name in _ENTRIES.items():
+            cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(d / "csrc"), "-o",
+                   str(d / f"{key}.so"), str(d / "csrc" / _cuda.KERNELS[name][0])]
+            procs[spec, key] = (d, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True))
+    fns = {spec: {} for spec in specs}
+    for (spec, key), (d, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"{spec}: nvcc rc {proc.returncode}\n{log}")
+            raise RuntimeError(f"{spec} {key}: nvcc rc {proc.returncode}\n{log}")
         _print_walks(spec, log)
-        fn = ctypes.CDLL(str(d / "kdb.so")).kd_block_search_launch
-        fn.argtypes, fn.restype = _cuda.KERNELS["kd_block_search"][2], ctypes.c_int
-        fns[spec] = fn
+        _, fn_name, argtypes = _cuda.KERNELS[_ENTRIES[key]]
+        fn = getattr(ctypes.CDLL(str(d / f"{key}.so")), fn_name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[spec][key] = fn
     return fns
 
 
@@ -88,14 +100,16 @@ def _print_walks(name: str, log: str) -> None:
     """The ptxas register lines of the walks (not the probe's)."""
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        m = re.search(r"entry function .*kd_block_search_walkILi(\d)ELb0E", line)
+        m = re.search(
+            r"entry function .*(kd|cached)_block_search_walkILi(\d)ELb0ELb\dELb(\d)E", line)
         if m:
             regs = next((x.strip() for x in lines[i + 1:i + 4] if "registers" in x), "")
-            print(f"  {name} walk<{m.group(1)}>: {regs}", flush=True)
+            pose = ", pose" if m.group(3) == "1" else ""
+            print(f"  {name} {m.group(1)} walk<{m.group(2)}{pose}>: {regs}", flush=True)
 
 
 def _launch(fn, q, sel, binit, pages):
-    """One launch of a variant's C entry; returns (d2, idx)."""
+    """One launch of a variant's kd_block_search entry; returns (d2, idx)."""
     b, n, d = q.shape
     k, nc, cap_pad = sel.shape[-1], pages.shape[1], pages.shape[-1]
     d2 = torch.empty((b, n), dtype=torch.float32, device=q.device)
@@ -108,6 +122,23 @@ def _launch(fn, q, sel, binit, pages):
     if err != 0:
         raise RuntimeError(f"kd_block_search variant failed to launch ({err})")
     return d2, idx
+
+
+def _launch_cached(fn, q, blk, bound, pages):
+    """One launch of a variant's cached_block_search entry (no pose);
+    returns (idx, d2), as ``kdtree.nn_search_kd_cached`` does."""
+    b, n, d = q.shape
+    nc, cap_pad = pages.shape[1], pages.shape[-1]
+    d2 = torch.empty((b, n), dtype=torch.float32, device=q.device)
+    idx = torch.empty((b, n), dtype=torch.int32, device=q.device)
+    ws_bytes = kdtree._block_search_workspace_bytes(b, n, nc, 1)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=q.device)
+    err = fn(q.data_ptr(), blk.data_ptr(), None, bound, pages.data_ptr(), d2.data_ptr(),
+             idx.data_ptr(), ws.data_ptr(), ws_bytes, b, n, nc, cap_pad, d,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cached_block_search variant failed to launch ({err})")
+    return idx, d2
 
 
 def _eth_inputs(cs, dev):
@@ -126,11 +157,11 @@ def _eth_inputs(cs, dev):
     return q, kd, knn.bound_value(cs.MAX_DISTANCE)
 
 
-def _colour_inputs(cs, dev):
+def _colour_inputs(cs, dev, checks=0):
     from icp_variants_tpu_torch.pipeline import icp
 
     tgt, sources = cs.prepare_tum_state(dev)
-    cfg = cs.tum_base_config(color_icp=True, multi_resolution=True, matching_checks=0)
+    cfg = cs.tum_base_config(color_icp=True, multi_resolution=True, matching_checks=checks)
     kd = kdtree.stack_kd_indexes([icp.build_kd_for(cfg, tgt, device=dev)] * cs.TUM_BATCH_FRAMES)
     fine = icp._slice_clouds_stride(sources, 1)
     first = torch.argmax(fine.valid.to(torch.uint8), dim=-1)
@@ -151,16 +182,26 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     _cuda.build_all()
-    _print_walks("production", _cuda.BUILD_LOG.get("kd_block_search.cu", ""))
+    for name in _ENTRIES.values():
+        _print_walks("production", _cuda.BUILD_LOG.get(_cuda.KERNELS[name][0], ""))
     fns = _build(args.variants)
     ok = True
-    for label, make in (("eth", _eth_inputs), ("colour", _colour_inputs)):
+    inputs = (("eth", _eth_inputs, 4), ("colour", _colour_inputs, 4),
+              ("colour seeded", lambda cs, dev: _colour_inputs(cs, dev, cs.CHECKS_APPROX), 1))
+    for label, make, k in inputs:
         q, kd, bv = make(cs, dev)
         binit = torch.full(q.shape[:2], bv, device=dev)
-        sel, _ = kdtree.box_topk(q, binit, kd.block_min, kd.block_max, 4)
-        calls = {"production": lambda: kdtree.kd_block_search(q, sel, binit, kd.pages)}
-        for spec, fn in fns.items():
-            calls[spec] = lambda fn=fn: _launch(fn, q, sel, binit, kd.pages)
+        sel, _ = kdtree.box_topk(q, binit, kd.block_min, kd.block_max, k)
+        if k == 1:
+            blk = sel[..., 0].contiguous()
+            maxd = cs.TUM_MAX_DISTANCE
+            calls = {"production": lambda: kdtree.nn_search_kd_cached(q, kd, maxd, blk)}
+            for spec, fn in fns.items():
+                calls[spec] = lambda fn=fn["cached"]: _launch_cached(fn, q, blk, bv, kd.pages)
+        else:
+            calls = {"production": lambda: kdtree.kd_block_search(q, sel, binit, kd.pages)}
+            for spec, fn in fns.items():
+                calls[spec] = lambda fn=fn["kd"]: _launch(fn, q, sel, binit, kd.pages)
         want = calls["production"]()
         equal = {}
         for name, call in calls.items():
@@ -172,8 +213,8 @@ def main(argv=None) -> int:
         for r in range(args.rounds):
             for name in (names if r % 2 == 0 else names[::-1]):
                 ms[name].append(cs.time_ms(calls[name], args.reps))
-        print(json.dumps({"input": label, "shape": list(q.shape), "equal": equal, "ms": ms}),
-              flush=True)
+        print(json.dumps({"input": label, "shape": list(q.shape), "k": k, "equal": equal,
+                          "ms": ms}), flush=True)
         del q, kd, sel, binit, want
         torch.cuda.empty_cache()
     return 0 if ok else 1

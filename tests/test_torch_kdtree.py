@@ -15,6 +15,9 @@ per fused add (two for a 3-term sum):
 they are compared to 2 ulp, and indices may differ only where the two
 candidates tie to within that rounding."""
 
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +27,7 @@ from scipy.spatial import cKDTree
 from icp_variants_tpu.ops import kdtree as jkd
 from icp_variants_tpu.ops import knn as jknn
 from icp_variants_tpu_torch import convert
+from icp_variants_tpu_torch.core import se3 as tse3
 from icp_variants_tpu_torch.ops import _cuda
 from icp_variants_tpu_torch.ops import kdtree as tkd
 from icp_variants_tpu_torch.ops import knn as tknn
@@ -500,6 +504,178 @@ def test_box_topk_contract_on_card(d):
         want = tkd.box_topk_plain(*args, k)
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), k
+
+
+# ---------------------------------------------------------------------------
+# The kernels' C entries, and the seeded search (cached_block_search) on the
+# block-major machinery at k = 1
+# ---------------------------------------------------------------------------
+
+
+def _c_params(src: str, fn: str) -> list[str]:
+    """The parameter types of ``extern "C" int fn(...)`` in ``csrc/<src>``."""
+    text = (_cuda.CSRC / src).read_text()
+    m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", text)
+    assert m, f"{fn} not in {src}"
+    return [re.sub(r"\s*\b\w+$", "", p.strip()).replace("const ", "")
+            for p in m.group(1).split(",")]
+
+
+def _ctype_of(c_type: str):
+    if c_type.endswith("*"):
+        return ctypes.c_void_p
+    return {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}[c_type]
+
+
+@pytest.mark.parametrize("name", sorted(_cuda.KERNELS))
+def test_ctypes_table_matches_c_entries(name):
+    """Each kernel's ctypes argument list is its C entry's, type for type
+    (a pointer as c_void_p, so that ctypes does not cut it to 32 bits)."""
+    src, fn, argtypes = _cuda.KERNELS[name]
+    assert [_ctype_of(t) for t in _c_params(src, fn)] == argtypes
+
+
+@pytest.mark.parametrize("with_pose", [False, True])
+def test_cached_search_launch_takes_a_k1_workspace(monkeypatch, with_pose):
+    """On a CUDA tensor nn_search_kd_cached launches its kernel once with
+    block_major.cuh's workspace at k = 1, the common bound, and arguments
+    matching the C entry's types (launch and checks replaced, meta tensors)."""
+    calls = []
+    monkeypatch.setattr(_cuda, "check_cuda_tensor", lambda *a: None)
+    monkeypatch.setattr(_cuda, "launch", lambda name, *args: calls.append((name, args)))
+    b, n, nc, cap, cap_pad, d = 2, 37, 8, 100, 128, 6
+    q = torch.zeros((b, n, d), device="meta")
+    index = tkd.KDIndex(*(torch.zeros(s, device="meta") for s in (
+        (b, nc, d * cap), (b, nc, cap), (b, nc, d), (b, nc, d), (b, nc, 8, cap_pad),
+        (b, nc * cap_pad))))
+    blk = torch.zeros((b, n), dtype=torch.int32, device="meta")
+    tkd.nn_search_kd_cached(q, index, 0.5, blk, pose=torch.eye(4) if with_pose else None)
+    (name, args), = calls
+    assert name == "cached_block_search"
+    argtypes = _cuda.KERNELS[name][2]
+    assert len(args) + 1 == len(argtypes)  # the stream is appended at launch
+    for a, t in zip(args, argtypes):
+        if a is None or isinstance(a, torch.Tensor):
+            assert t is ctypes.c_void_p
+        elif isinstance(a, float):
+            assert t is ctypes.c_float
+        else:
+            assert t in (ctypes.c_int, ctypes.c_longlong), (a, t)
+    pose, bound, ws, ws_bytes = args[2], args[3], args[7], args[8]
+    assert (pose is None) != with_pose and (pose is None or pose.shape == (b, 4, 4))
+    assert bound == tknn.bound_value(0.5)
+    assert ws_bytes == ws.numel() == tkd._block_search_workspace_bytes(b, n, nc, 1)
+    assert ws_bytes < tkd._block_search_workspace_bytes(b, n, nc, 4)
+    assert args[9:] == (b, n, nc, cap_pad, d)
+
+
+def _at_squared_distance(target: np.float32) -> tuple[np.float32, np.float32]:
+    """f32 (a, c) with fl(fl(a * a) + fl(c * c)) == target exactly."""
+    a = np.float32(np.sqrt(target / 2))
+    for _ in range(4096):
+        c0 = np.float32(np.sqrt(np.float64(target) - np.float64(np.float32(a * a))))
+        for c in (c0, np.nextafter(c0, np.float32(0)), np.nextafter(c0, np.float32(np.inf))):
+            if np.float32(np.float32(a * a) + np.float32(c * c)) == target:
+                return a, c
+        a = np.nextafter(a, np.float32(0))
+    raise AssertionError(f"no f32 pair at squared distance {target}")
+
+
+def _cached_contract_inputs(d, with_pose, seed):
+    """Integer pages on the card, B = 3 pairs of N = 3,001 rows (not a
+    multiple of 32 or 128) over 9 blocks of 256 slots, and the seeded
+    blocks: ids of -1, below -1 and past nc - 1; the rows of block 2 of
+    pair 2 far past one chunk; rows 100-119 of pair 0 at the origin seeded
+    with block 8, whose only near point lies at exactly the bound (a
+    miss), the rest far. With a pose (pairs 0 and 1 a signed permutation
+    and an integer translation, so the moved queries are the same integers;
+    pair 2 a general rotation) the queries are raw, moved back through the
+    pose. Returns (queries, index, blk, pose, max_distance)."""
+    rng = np.random.default_rng(seed)
+    b, n, nc, cap = 3, 3001, 9, 256
+    maxd = 2.0
+    pages = np.zeros((b, nc, 8, cap), np.float32)
+    pages[:, :, :d] = rng.integers(-3, 4, (b, nc, d, cap))
+    q = rng.integers(-3, 4, (b, n, d)).astype(np.float32)
+    blk = rng.integers(-1, nc + 3, (b, n)).astype(np.int32)
+    blk[:, ::17] = -1
+    blk[:, 5::17] = -7
+    blk[2, 200:1800] = 2
+    a, c = _at_squared_distance(np.float32(tknn.bound_value(maxd)))
+    pages[0, 8, :d] = 9.0
+    pages[0, 8, :d, 5] = 0.0
+    pages[0, 8, 0, 5], pages[0, 8, 1, 5] = a, c
+    q[0, 100:120] = 0.0
+    blk[0, 100:120] = 8
+    pose = None
+    raw = q
+    if with_pose:
+        pose = np.zeros((b, 4, 4), np.float32)
+        pose[:, 3, 3] = 1.0
+        pose[0, :3, :3] = [[0, -1, 0], [1, 0, 0], [0, 0, 1]]
+        pose[0, :3, 3] = [2, -1, 3]
+        pose[1, :3, :3] = [[1, 0, 0], [0, 0, -1], [0, 1, 0]]
+        pose[1, :3, 3] = [-3, 0, 1]
+        t = 0.3
+        pose[2, :3, :3] = [[np.cos(t), -np.sin(t), 0], [np.sin(t), np.cos(t), 0], [0, 0, 1]]
+        pose[2, :3, 3] = [0.25, -0.5, 0.125]
+        raw = q.copy()
+        for i in (0, 1):
+            R, tr = pose[i, :3, :3], pose[i, :3, 3]
+            raw[i, :, :3] = (q[i, :, :3] - tr) @ R  # R^T (q - t), exact
+    dev = torch.device("cuda")
+    pg = torch.from_numpy(pages).to(dev)
+    index = tkd.KDIndex(
+        pg[:, :, :d].reshape(b, nc, d * cap).contiguous(),
+        torch.zeros((b, nc, cap), dtype=torch.int32, device=dev),
+        torch.zeros((b, nc, d), device=dev), torch.zeros((b, nc, d), device=dev), pg,
+        torch.zeros((b, nc * cap), dtype=torch.int32, device=dev))
+    to = lambda x: None if x is None else torch.from_numpy(x).to(dev)  # noqa: E731
+    return to(raw), index, to(blk), to(pose), maxd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 6])
+@pytest.mark.parametrize("with_pose", [False, True])
+def test_cached_block_search_contract_on_card(d, with_pose):
+    """The block-major cached_block_search equals its plain version bit for
+    bit, with and without a pose, on inputs that hold each hard case (and
+    the test asserts that they do): -1 rows (and ids below -1), ids past
+    nc - 1 (clipped), a bucket far past one chunk, rows whose least d2
+    equals the bound exactly (a miss: (bound, -1)), and rows whose least d2
+    lies at two slots or more (the lowest slot wins)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    queries, index, blk, pose, maxd = _cached_contract_inputs(d, with_pose, 90 + d)
+    moved = queries if pose is None else torch.cat(
+        [tse3.transform_points(queries[..., :3], pose), queries[..., 3:]], dim=-1)
+    nc = index.pages.shape[1]
+    bound = np.float32(tknn.bound_value(maxd))
+    got = tkd.nn_search_kd_cached(queries, index, maxd, blk, pose=pose)
+    want = tkd.nn_search_kd_cached_oracle(queries, index, maxd, blk, pose=pose)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    ids, d2 = want
+    assert bool((blk == -1).any()) and bool((blk < -1).any()) and bool((blk > nc - 1).any())
+    assert bool((ids[blk < 0] == -1).all()) and bool((d2[blk < 0] == float(bound)).all())
+    # The planted rows: least d2 == the bound, so a miss.
+    cand = index.pages[0, 8, :d]                                    # (d, cap)
+    least = ((cand[None] - moved[0, 100:120, :, None]) ** 2).sum(1).min(-1).values
+    assert bool((least == float(bound)).all())
+    assert bool((ids[0, 100:120] == -1).all()) and bool((d2[0, 100:120] == float(bound)).all())
+    # Ties: rows with a hit whose least d2 lies at two slots or more.
+    bi = torch.arange(3, device=blk.device)[:, None]
+    pts = index.pages[bi, blk.clamp(0, nc - 1).long(), :d]          # (B, N, d, cap)
+    dd = None
+    for j in range(d):
+        diff = pts[:, :, j] - moved[..., j, None]
+        dd = diff * diff if dd is None else dd + diff * diff
+    at_min = (dd == dd.min(-1, keepdim=True).values).sum(-1)
+    tied = (ids >= 0) & (at_min >= 2)
+    assert int(tied.sum()) > 0
+    slot = ids % index.pages.shape[-1]
+    first = (dd == dd.min(-1, keepdim=True).values).int().argmax(-1)
+    assert bool((slot[tied] == first[tied]).all())
 
 
 # ---------------------------------------------------------------------------

@@ -307,6 +307,111 @@ def test_tie_goes_to_block_order():
     assert t[1][0] == j[1][0]
 
 
+# ---------------------------------------------------------------------------
+# The window search's order: the kernel's rank key against the plain
+# version's first argmin, and the kernel's contract on the card
+# ---------------------------------------------------------------------------
+
+
+def _rank(u, v, width, block):
+    """Position of pixel (u, v) in the plain version's first-argmin order:
+    block row, block column, then row and column inside the block
+    (``csrc/projective_window_search.cu``'s ``proj_rank``)."""
+    wb = -(-width // block)
+    return ((v // block) * wb + u // block) * block * block + (v % block) * block + u % block
+
+
+def _window_contract_inputs(seed, w=100, h=70):
+    """An integer-valued image (every distance exact in f32, ties
+    everywhere) with about 20% invalid pixels and a 30 x 30 all-invalid
+    patch; queries with integer coordinates at every pixel from 14 before
+    to 14 past each edge in raster order (every offset mod 16 in both axes,
+    windows cut by the border or wholly outside it), then 1,024 at random
+    pixels (neighbours far apart) and 4 clipped to +-1e6. Returns numpy
+    (q, pix, img, ok)."""
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 3, (h * w, 3)).astype(np.float32)
+    ok = rng.random(h * w) > 0.2
+    ok.reshape(h, w)[:30, 40:70] = False
+    uu, vv = np.meshgrid(np.arange(-14, w + 14), np.arange(-14, h + 14))
+    scattered = np.column_stack([rng.integers(-14, w + 14, 1024), rng.integers(-14, h + 14, 1024)])
+    far = np.array([[1_000_000, 5], [-1_000_000, -1_000_000], [7, 1_000_000], [-1_000_000, 20]])
+    pix = np.concatenate([np.column_stack([uu.ravel(), vv.ravel()]), scattered, far])
+    q = rng.integers(0, 3, (len(pix), 3)).astype(np.float32)
+    return q, pix.astype(np.int32), img, ok
+
+
+def _window_reference(q, pix, img, ok, w, h, window, block):
+    """numpy: per query the least d2 over the valid in-image pixels of its
+    window and, among the pixels at it, the least ``_rank`` (idx, d2), or
+    (-1, BIG); and whether the raster-first pixel at that d2 is another."""
+    d = np.arange(-window, window + 1)
+    u = pix[:, 0, None, None] + d[None, None, :]
+    v = pix[:, 1, None, None] + d[None, :, None]
+    inside = (u >= 0) & (u < w) & (v >= 0) & (v < h)
+    lin = np.where(inside, v * w + u, 0)
+    diff = img[lin] - q[:, None, None, :]
+    d2 = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]) + diff[..., 2] * diff[..., 2]
+    d2 = np.where(inside & ok[lin], d2, np.inf).reshape(len(q), -1)
+    best = d2.min(1)
+    at = d2 == best[:, None]
+    rank = np.where(at, _rank(u, v, w, block).reshape(len(q), -1), np.iinfo(np.int64).max)
+    idx = np.take_along_axis(lin.reshape(len(q), -1), rank.argmin(1)[:, None], 1)[:, 0]
+    raster = np.take_along_axis(lin.reshape(len(q), -1), at.argmax(1)[:, None], 1)[:, 0]
+    found = np.isfinite(best)
+    return (np.where(found, idx, -1).astype(np.int32),
+            np.where(found, best, np.float32(tproj.BIG)).astype(np.float32),
+            found & (raster != idx))
+
+
+@pytest.mark.parametrize("window,block", [(12, 16), (20, 16), (12, 5), (3, 4)])
+def test_window_rank_is_the_plain_order(window, block):
+    """The plain window search takes, among the window's pixels at the
+    least d2, the least ``_rank``: the key the kernel reduces with. The
+    inputs hold rows whose raster-first pixel at that d2 is another one,
+    rows with no valid pixel, and clipped projections. ``_rank`` grows with
+    v inside a column, which the kernel's per-column scan relies on."""
+    w, h = 100, 70
+    q, pix, img, ok = _window_contract_inputs(seed=20 + window + block, w=w, h=h)
+    ti, td = (x[0].numpy() for x in tproj.projective_match_plain(
+        *(torch.from_numpy(a)[None] for a in (q, pix, img, ok)), width=w, height=h,
+        window=window, block=block))
+    ri, rd, other = _window_reference(q, pix, img, ok, w, h, window, block)
+    np.testing.assert_array_equal(ti, ri)
+    np.testing.assert_array_equal(td, rd)
+    assert other.sum() > 0 and (ri < 0).sum() > 0 and (ri >= 0).sum() > len(q) // 4
+    u, v = np.meshgrid(np.arange(w), np.arange(h - 1))
+    assert (_rank(u, v + 1, w, block) > _rank(u, v, w, block)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,block", [(12, 16), (20, 16), (12, 5)])
+def test_window_search_contract_on_card(window, block):
+    """The warp-per-query window search equals its plain version bit for
+    bit: windows crossing block edges and image edges at every offset mod
+    16 (the rolled loops with runtime bounds), windows wider than 32
+    columns (window 20: two column chunks a lane), off-image and clipped
+    windows, invalid pixels and an all-invalid patch, scattered windows,
+    and rows whose block-order winner differs from the raster-order one
+    (asserted present); then the same queries on a float-valued image."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    w, h = 100, 70
+    q, pix, img, ok = _window_contract_inputs(seed=20 + window + block, w=w, h=h)
+    _, _, other = _window_reference(q, pix, img, ok, w, h, window, block)
+    assert other.sum() > 0
+    rng = np.random.default_rng(window)
+    dev = torch.device("cuda")
+    for image in (img, img + rng.normal(0, 0.3, img.shape).astype(np.float32)):
+        args = [torch.from_numpy(a)[None].to(dev) for a in (q, pix, image, ok)]
+        kw = dict(width=w, height=h, window=window, block=block)
+        got = tproj.projective_window_search(*args, **kw)
+        want = tproj.projective_match_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert bool((got[0] < 0).any()) and bool((got[0] >= 0).any())
+
+
 def test_wrapper_refuses_other_devices():
     q = torch.zeros((1, 4, 3), device="meta")
     with pytest.raises(ValueError, match="CUDA"):

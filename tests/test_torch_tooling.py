@@ -279,9 +279,10 @@ def test_block_search_probe_matches_jax_resident_probe():
 def test_measurement_build_is_kept_apart_from_the_production_build():
     """kd_block_search's lane-counting build (``resident_bench.lane_use``)
     gets a library path of its own, so it never replaces the production
-    build; its source guards the counters and their reader behind the
-    define; and the CUDA launch path refuses CPU tensors rather than
-    running the plain version."""
+    build; its sources guard the counters (in the walk that
+    ``block_major.cuh`` holds) and their reader behind the define; and the
+    CUDA launch path refuses CPU tensors rather than running the plain
+    version."""
     from icp_variants_tpu_torch.ops import _cuda
     from icp_variants_tpu_torch.scripts import resident_bench
 
@@ -289,8 +290,8 @@ def test_measurement_build_is_kept_apart_from_the_production_build():
     prod, lanes = _cuda._lib_path(src), _cuda._lib_path(src, resident_bench.LANE_DEFINES)
     assert prod != lanes and prod.parent == lanes.parent
     assert lanes.name.startswith("kd_block_search-kdb_lane_count-")
+    assert (_cuda.CSRC / "block_major.cuh").read_text().count("#ifdef KDB_LANE_COUNT") >= 3
     text = src.read_text()
-    assert text.count("#ifdef KDB_LANE_COUNT") >= 3
     guarded = text[text.rindex("#ifdef KDB_LANE_COUNT"):]
     assert 'extern "C" int kd_block_search_lanes(' in guarded
     q = torch.zeros((1, 4, 3))
@@ -300,21 +301,32 @@ def test_measurement_build_is_kept_apart_from_the_production_build():
                                     resident_bench.LANE_DEFINES)
 
 
+# The ids of the d3 / d6 cases are those they had when the kd search's
+# shapes were written KdbShape<D> (before the seeded search had its own).
 @pytest.mark.parametrize("spec, old, new", [
     ("unroll=8", "#pragma unroll 4\n  for (int s4", "#pragma unroll 8\n  for (int s4"),
-    ("d3=32x2", "KdbShape<3> { static constexpr int chunk = 64, queries = 1; }",
-     "KdbShape<3> { static constexpr int chunk = 32, queries = 2; }"),
-    ("d6=1024x4", "KdbShape<6> { static constexpr int chunk = 512, queries = 2; }",
-     "KdbShape<6> { static constexpr int chunk = 1024, queries = 4; }"),
+    pytest.param(
+        "d3=32x2", "KdbShape<3, false> { static constexpr int chunk = 64, queries = 1; }",
+        "KdbShape<3, false> { static constexpr int chunk = 32, queries = 2; }",
+        id="d3=32x2-KdbShape<3> { static constexpr int chunk = 64, queries = 1; }"
+           "-KdbShape<3> { static constexpr int chunk = 32, queries = 2; }"),
+    pytest.param(
+        "d6=1024x4", "KdbShape<6, false> { static constexpr int chunk = 512, queries = 2; }",
+        "KdbShape<6, false> { static constexpr int chunk = 1024, queries = 4; }",
+        id="d6=1024x4-KdbShape<6> { static constexpr int chunk = 512, queries = 2; }"
+           "-KdbShape<6> { static constexpr int chunk = 1024, queries = 4; }"),
+    ("s6=128x1", "KdbShape<6, true> { static constexpr int chunk = 256, queries = 1; }",
+     "KdbShape<6, true> { static constexpr int chunk = 128, queries = 1; }"),
 ])
 def test_kd_variants_edit_one_line_of_the_walk(spec, old, new):
     """scripts/kd_variants' edits change exactly the named line of the
-    production kd_block_search.cu (the slot loop's unroll, one D's launch
-    shape) and refuse a spec they cannot place."""
+    production block_major.cuh (the slot loop's unroll, one D's launch
+    shape of the kd or the seeded search) and refuse a spec they cannot
+    place."""
     from icp_variants_tpu_torch.ops import _cuda
     from icp_variants_tpu_torch.scripts import kd_variants
 
-    src = (_cuda.CSRC / "kd_block_search.cu").read_text()
+    src = (_cuda.CSRC / "block_major.cuh").read_text()
     assert src.count(old) == 1
     assert kd_variants._edit(src, spec) == src.replace(old, new)
     with pytest.raises(ValueError):
