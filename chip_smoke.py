@@ -103,7 +103,11 @@ Phases, in order; any failure exits nonzero:
    (its report printed; the kernel launched 4 times per call);
    pruned_nn_search (``nn_search_pruned``) on pair 0's selected queries
    at max_distance 10 and 0.01 and on the colour frame at 0.1, against its
-   plain version and cKDTree; cached_block_search's pose mode at the
+   plain version and cKDTree; each of these five readings beside its bound
+   and the rounding contract's issue floor (2D + 2 instructions a pair),
+   split by launch (``kernel_split``), with the rescans counted by the
+   ``-DNN_RESCAN_COUNT`` build and one profiled call attributed to its
+   kernel (``device_ms_by_port_kernel``); cached_block_search's pose mode at the
    colour checks16 arm's fine level (raw features, the warm-up's final
    poses) against its plain version and transform-then-search, its time
    split by launch.
@@ -169,6 +173,14 @@ PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 # Dense TF32 tensor-core peak of the same card (data sheet).
 PEAK_TF32_OPS = 495e12
+# Late in a long run (phase 7, eight minutes in) a profiled window of tens
+# of ms lost some or all of its kernels. The likely cause, not isolated:
+# torch.profiler keeps the kernels whose GPU timestamps, converted to the
+# host's clock, fall inside the window, and the conversion drifts. Each
+# profile pads its window by this many seconds on each side.
+PROFILE_PAD_S = 2.0
+# The launches of cached_block_search, as kernel_split names them.
+CACHED_PARTS = ("bin", "scan", "scatter", "walk", "out")
 # Mean translation error gates: 1 cm for a gross failure, and 0.01 mm,
 # set from the card's readings (about 0.0003 mm on both arms): a TF32 solve
 # or a matcher fault in a later iteration moves the error past it.
@@ -444,8 +456,10 @@ def profile_run(fn, wall_s: float, top: int = 8) -> dict:
     from icp_variants_tpu_torch.ops import _cuda
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total_us = sum(e.self_device_time_total for e in kernels)
     if total_us <= 0:
@@ -465,12 +479,13 @@ def profile_run(fn, wall_s: float, top: int = 8) -> dict:
     }
 
 
-def kernel_split(fn, prefix, reps=5) -> dict:
+def kernel_split(fn, prefix, parts, reps=5) -> dict:
     """Device ms per launch of each ``__global__`` named ``<prefix>_<part>``
     over ``reps`` calls of ``fn`` under ``torch.profiler`` (after one
     warm-up call): a kernel of several launches, each once a call, split by
     launch. Divided by the launches the profiler recorded (late in a long
-    run it may drop some events). Raises :class:`Failure` if it sees none."""
+    run it may drop some events; the window is padded, PROFILE_PAD_S).
+    Raises :class:`Failure` if it sees no launch of one of ``parts``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -478,19 +493,21 @@ def kernel_split(fn, prefix, reps=5) -> dict:
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     us, count = collections.Counter(), collections.Counter()
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and prefix + "_" in e.key:
             part = e.key.split(prefix + "_", 1)[1].split("<")[0].split("(")[0]
             us[part] += e.self_device_time_total
             count[part] += e.count
-    out = {part: us[part] / 1e3 / count[part] for part in us}
-    if not out:
-        raise Failure(f"{prefix}: the profiler saw no launch of its kernels")
-    return out
+    missing = [part for part in parts if part not in us]
+    if missing:
+        raise Failure(f"{prefix}: the profiler saw no launch of its {', '.join(missing)}")
+    return {part: us[part] / 1e3 / count[part] for part in us}
 
 
 @functools.lru_cache(maxsize=None)
@@ -939,6 +956,58 @@ def lane_reading(label, q, sel, binit, pages):
           "the production build's")
 
 
+# The measurement build of csrc/dense_nn_search.cu that counts the walk's
+# (query, group) steps, moved marks, run flushes, rescans, misses and runs
+# ended by a lower tile.
+NN_COUNT_DEFINES = ("NN_RESCAN_COUNT",)
+
+
+def issue_floor(pairs, d):
+    """Least ms for ``pairs`` (query, target) pairs of the expansion under
+    the rounding contract: 2D + 2 instructions a pair (D products and D - 1
+    sums of g, the sum qn2 + tn2, one fused s - 2g, the running minimum),
+    none contracted, at one a lane a clock: half of PEAK_F32_OPS, which
+    counts an FMA as two operations."""
+    return pairs * (2 * d + 2) / (PEAK_F32_OPS / 2) * 1e3
+
+
+def rescan_reading(label, call, want):
+    """Run ``call(defines)`` once on the counting build of the dense and
+    pruned searches (``-DNN_RESCAN_COUNT``, not counted in the launches),
+    check its (idx, d2) equal to ``want`` (the production build's), and
+    return its counts: (query, 32-row group) steps, group marks moved, run
+    flushes with a mark, rescans, the rescanned share of the pairs and the
+    runs that a lower tile of their band ended (the card's list of cells
+    comes in any order); a rescan that found no row fails the check."""
+    import ctypes
+
+    import torch
+
+    from icp_variants_tpu_torch.ops import _cuda
+
+    read = _cuda.variant("dense_nn_search.cu", NN_COUNT_DEFINES).nn_search_counts
+    read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    counts = (ctypes.c_ulonglong * 6)()
+    torch.cuda.synchronize()
+    if read(counts, 1) != 0:
+        raise Failure("nn_search_counts: reset failed")
+    got = call(NN_COUNT_DEFINES)
+    torch.cuda.synchronize()
+    if read(counts, 1) != 0:
+        raise Failure("nn_search_counts: read failed")
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"{label}: the rescan-counting build's result equal to the production build's")
+    steps, marks, flushes, rescans, misses, restarts = (int(c) for c in counts)
+    out = dict(group_steps=steps, marks_moved=marks, flushes=flushes, rescans=rescans,
+               rescanned_share=rescans / steps if steps else 0.0, tile_restarts=restarts)
+    print(f"  {label} (counting build): {steps} (query, group) steps, {marks} marks moved, "
+          f"{flushes} run flushes with a mark, {rescans} rescans of 32 rows: "
+          f"{out['rescanned_share']:.3e} of the pairs walked again; {restarts} runs ended by "
+          "a lower tile of their band", flush=True)
+    check(misses == 0, f"{label}: every rescan found its row ({misses} missed)")
+    return out
+
+
 def _tie_or_equal(idx_k, idx_p, d2_k, q, pages, what):
     """Kernel and plain indices into ``pages`` agree, or differ only where
     the kernel's point lies at exactly the kernel's reported distance."""
@@ -1093,11 +1162,11 @@ def color_phase():
     print(f"  cached_block_search: {int(has.sum())} seeded rows, {row_pts} real points "
           f"searched, {int(used.sum())} distinct (frame, block)")
     split = kernel_split(lambda: kdtree.nn_search_kd_cached(q_ap, ka, TUM_MAX_DISTANCE, blk),
-                         "cached_block_search")
+                         "cached_block_search", CACHED_PARTS)
     rows["cached_block_search"]["split_ms"] = split
     print("  cached_block_search by launch (profiler, ms a launch): "
           + ", ".join(f"{k} {v:.4f}" for k, v in split.items()), flush=True)
-    check(set(split) == {"bin", "scan", "scatter", "walk", "out"},
+    check(set(split) == set(CACHED_PARTS),
           "cached_block_search: the profiler reads its five launches (bucketing, walk, out)")
     del ci_k, cd_k, ci_p, cd_p
 
@@ -2153,6 +2222,40 @@ def cell_work(visit, q_real, t_real, tile_q, tile_t, d):
     return nbytes, pairs * 3 * d, pairs
 
 
+def matcher_inputs(src, tgt, frame, ctgt) -> dict:
+    """Phase 7's matcher inputs, on the clouds' device (also those of
+    ``scripts/nn_ab.py``): ETH pair 0 (``src`` against ``tgt``, Morton
+    ordered) with the rows that the p = 0.01 mask (``mask``) leaves out at
+    the pad sentinel (``q3``) against its target rows (``t3``), for the
+    dense search; its compacted query slots (``qk``, live where ``qm``, a
+    dead slot repeating the first live row), for the pruned one; colour
+    ``frame``'s features, invalid rows at the sentinel (``q6``), against
+    the target ``ctgt``'s (``t6``)."""
+    import torch
+
+    from icp_variants_tpu_torch.core import cloud as cloud_lib
+    from icp_variants_tpu_torch.ops import knn, selection
+    from icp_variants_tpu_torch.pipeline import icp
+
+    dev = src.points.device
+    mask = selection.random_sampling(torch.Generator(device=dev).manual_seed(0), src.valid,
+                                     SELECTION_P)
+    q3 = torch.where(mask[:, None], src.points, cloud_lib.PAD_SENTINEL)[None].contiguous()
+    k_cap = icp._compact_capacity(src.capacity, SELECTION_P)
+    sel_idx, in_range = selection.bernoulli_gap_indices(
+        torch.Generator(device=dev).manual_seed(0), SELECTION_P, 1, src.capacity, k_cap,
+        batch=(1,), device=dev)
+    src_b = icp.stack_clouds([src])
+    qc, qm = icp._compact_cloud(src_b, icp._fuse_cloud_table(src_b), sel_idx, in_range, False)
+    first = torch.argmax(qm.to(torch.uint8), dim=-1)
+    qk = torch.where(qm[..., None], qc.points, knn.take_rows(qc.points, first[:, None]))
+    q6 = knn.color_features(torch.where(frame.valid[:, None], frame.points,
+                                        cloud_lib.PAD_SENTINEL), frame.colors)[None]
+    t6 = knn.color_features(ctgt.points, ctgt.colors)[None]
+    return dict(mask=mask, q3=q3, t3=tgt.points[None].contiguous(), qk=qk.contiguous(), qm=qm,
+                q6=q6.contiguous(), t6=t6.contiguous())
+
+
 def matcher_phase(colour):
     """Phase 7 on the card: the dense matcher behind ``knn.match`` (TPU
     kernel 6) as the per-stage profiler feeds it, ``profile_stages`` itself,
@@ -2163,7 +2266,7 @@ def matcher_phase(colour):
     import torch
 
     from icp_variants_tpu_torch.core import cloud as cloud_lib
-    from icp_variants_tpu_torch.ops import _cuda, kdtree, knn, selection
+    from icp_variants_tpu_torch.ops import _cuda, kdtree, knn
     from icp_variants_tpu_torch.pipeline import icp, profiling
     from icp_variants_tpu_torch.pipeline.config import (
         ICPConfig, Metric, Minimizer, Selection,
@@ -2210,25 +2313,28 @@ def matcher_phase(colour):
                    shapes=f"1 x {q.shape[1]} rows against {t.shape[1]} ({n_real_t} real), D = {d}",
                    plain_on=f"the same rows, in windows of {plain_rows}")
         print(f"  dense_nn_search D={d} ({label}): kernel {row['ms']:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {row['bound'][0]:.5f} ms ({row['bound'][1]}); "
+              f"{plain_ms:.4f} ms, bound {row['bound'][0]:.5f} ms ({row['bound'][1]}), the "
+              f"contract's issue floor {issue_floor(q.shape[1] * n_real_t, d):.5f} ms; "
               f"{res[1]} of {res[0]} selected rows equal to cKDTree's index, worst "
               f"{res[2]:.3f} of the rounding tolerance", flush=True)
+        row["split_ms"] = kernel_split(lambda: knn.dense_nn_search(q, t), "dense_nn_search",
+                                       ("pack", "walk"), reps=2)
+        print(f"  dense_nn_search D={d} ({label}) by launch (profiler, ms a launch): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in row["split_ms"].items()), flush=True)
+        row["rescans"] = rescan_reading(f"dense_nn_search D={d} ({label})",
+                                        lambda defs: knn._dense_nn_search_launch(q, t, defs),
+                                        (idx, d2))
         return row
 
-    mask_gen = torch.Generator(device=dev).manual_seed(0)
-    mask = selection.random_sampling(mask_gen, src.valid, SELECTION_P)
-    q3 = torch.where(mask[:, None], src.points, cloud_lib.PAD_SENTINEL)[None].contiguous()
-    rows["dense_nn_search"] = dense_check("ETH pair 0, p = 0.01 mask-based, unselected rows at "
-                                          "the pad sentinel", q3, tgt.points[None], mask[None],
-                                          tgt.valid[None])
     frame = icp.Cloud(*(f[0] for f in colour["sources"]))
     ctgt = colour["tgt_host"].to(dev)
-    q6 = knn.color_features(torch.where(frame.valid[:, None], frame.points,
-                                        cloud_lib.PAD_SENTINEL), frame.colors)[None].contiguous()
-    t6 = knn.color_features(ctgt.points, ctgt.colors)[None].contiguous()
-    rows["dense_nn_search_colour"] = dense_check("colour frame 1 against frame 0", q6, t6,
-                                                 frame.valid[None], ctgt.valid[None])
-    del q3
+    ins = matcher_inputs(src, tgt, frame, ctgt)
+    rows["dense_nn_search"] = dense_check("ETH pair 0, p = 0.01 mask-based, unselected rows at "
+                                          "the pad sentinel", ins["q3"], ins["t3"],
+                                          ins["mask"][None], tgt.valid[None])
+    rows["dense_nn_search_colour"] = dense_check("colour frame 1 against frame 0", ins["q6"],
+                                                 ins["t6"], frame.valid[None], ctgt.valid[None])
+    del ins["q3"]
     torch.cuda.empty_cache()
 
     # ---- profile_stages at full width -------------------------------------
@@ -2255,6 +2361,19 @@ def matcher_phase(colour):
                               weighting_ms=times.weighting * 1e3,
                               rejection_ms=times.rejection * 1e3, solver_ms=times.solver * 1e3)
     print("  profile_stages: " + json.dumps(reports))
+    # The profiles' attribution by port kernel (every __global__ of the
+    # expansion matchers carries its entry's name).
+    t0 = time.perf_counter()
+    profiling.profile_stages(eth_cfg, src, tgt, repetitions=1, device=dev)
+    torch.cuda.synchronize()
+    prof = profile_run(lambda: profiling.profile_stages(eth_cfg, src, tgt, repetitions=1,
+                                                        device=dev), time.perf_counter() - t0)
+    by_port = prof.get("device_ms_by_port_kernel", {})
+    print(f"  profile_stages (ETH headline, pair 0), one call profiled: device ms by port kernel "
+          f"{json.dumps(by_port)}", flush=True)
+    check(by_port.get("dense_nn_search", 0) > 0,
+          "profile_stages (ETH headline, pair 0), one call profiled: device time attributed to "
+          "dense_nn_search")
 
     # ---- kernel 7: the tile-pruned matcher ---------------------------------
     direct = 0
@@ -2283,6 +2402,10 @@ def matcher_phase(colour):
         check(torch.equal(d2, d2_p) and torch.equal(idx, idx_p),
               f"pruned_nn_search D={d} ({label}, max_distance {maxd:g}, all {q.shape[1]} rows): "
               "d2 and idx equal to plain")
+        again = [knn.pruned_nn_search(*args, **kw) for _ in range(3)]
+        check(all(torch.equal(a[0], idx_p) and torch.equal(a[1], d2_p) for a in again),
+              f"pruned_nn_search D={d} ({label}, max_distance {maxd:g}): 3 more calls (the "
+              "card's list of cells in another order each time) equal to plain")
         rows_ok = np.flatnonzero(t_ok[0].cpu().numpy())
         sel = q_ok[0].cpu().numpy()
         res = expansion_vs_ckdtree(q[0].cpu().numpy()[sel].astype(np.float64),
@@ -2302,32 +2425,37 @@ def matcher_phase(colour):
                    visited_cells=f"{int(visit.sum())} of {visit.numel()}")
         print(f"  pruned_nn_search D={d} ({label}, max_distance {maxd:g}): kernel "
               f"{row['ms']:.4f} ms, plain {plain_ms:.4f} ms, bound {row['bound'][0]:.5f} ms "
-              f"({row['bound'][1]}); {row['visited_cells']} cells visited, {pairs:.4g} real pairs; "
+              f"({row['bound'][1]}), the contract's issue floor {issue_floor(pairs, d):.5f} ms; "
+              f"{row['visited_cells']} cells visited, {pairs:.4g} real pairs; "
               f"{res[0]} of {int(sel.sum())} real rows found, {res[1]} equal to cKDTree's index",
               flush=True)
+        row["split_ms"] = kernel_split(lambda: knn.pruned_nn_search(*args, **kw),
+                                       "pruned_nn_search", ("pack", "list", "walk", "out"))
+        print(f"  pruned_nn_search D={d} ({label}, max_distance {maxd:g}) by launch (profiler, "
+              "ms a launch): " + ", ".join(f"{k} {v:.4f}" for k, v in row["split_ms"].items()),
+              flush=True)
+        prof = profile_run(lambda: knn.pruned_nn_search(*args, **kw), row["ms"] / 1e3)
+        got = prof.get("device_ms_by_port_kernel", {}).get("pruned_nn_search", 0)
+        check(got > 0, f"pruned_nn_search D={d} ({label}, max_distance {maxd:g}), one call "
+                       f"profiled: device time attributed to pruned_nn_search ({got:.4f} ms)")
+        row["rescans"] = rescan_reading(
+            f"pruned_nn_search D={d} ({label}, max_distance {maxd:g})",
+            lambda defs: knn._pruned_nn_search_launch(*args, knn.TILE_Q, knn.INDEX_TILE_T, defs),
+            (idx, d2))
         return row
 
-    k_cap = icp._compact_capacity(cap, SELECTION_P)
-    sel_idx, in_range = selection.bernoulli_gap_indices(
-        torch.Generator(device=dev).manual_seed(0), SELECTION_P, 1, cap, k_cap, batch=(1,),
-        device=dev)
-    src_b = icp.stack_clouds([src])
-    qc, qm = icp._compact_cloud(src_b, icp._fuse_cloud_table(src_b), sel_idx, in_range, False)
-    first = torch.argmax(qm.to(torch.uint8), dim=-1)
-    qk = torch.where(qm[..., None], qc.points, knn.take_rows(qc.points, first[:, None]))
-    qk = qk.contiguous()
     for maxd in (MAX_DISTANCE, 0.01):
-        row = pruned_check(f"ETH pair 0's {k_cap} selected query slots", qk, qm,
-                           tgt.points[None], tgt.valid[None], maxd)
+        row = pruned_check(f"ETH pair 0's {ins['qk'].shape[1]} selected query slots", ins["qk"],
+                           ins["qm"], ins["t3"], tgt.valid[None], maxd)
         if maxd == MAX_DISTANCE:
             rows["pruned_nn_search"] = row
         else:
             rows["pruned_nn_search"]["tight"] = row
     rows["pruned_nn_search"]["colour"] = pruned_check(
-        "colour frame 1 against frame 0", q6, frame.valid[None], t6, ctgt.valid[None],
-        TUM_MAX_DISTANCE)
+        "colour frame 1 against frame 0", ins["q6"], frame.valid[None], ins["t6"],
+        ctgt.valid[None], TUM_MAX_DISTANCE)
     rows["pruned_nn_search"]["direct_launches"] = direct
-    del q6, t6
+    del ins
     torch.cuda.empty_cache()
 
     # ---- kernel 2e: the seeded search's pose mode -------------------------
@@ -2372,7 +2500,7 @@ def matcher_phase(colour):
           flush=True)
     pose_row["split_ms"] = kernel_split(
         lambda: kdtree.nn_search_kd_cached(raw, ka, TUM_MAX_DISTANCE, blk, pose=pose),
-        "cached_block_search")
+        "cached_block_search", CACHED_PARTS)
     print("  cached_block_search with pose= by launch (profiler, ms a launch): "
           + ", ".join(f"{k} {v:.4f}" for k, v in pose_row["split_ms"].items()), flush=True)
     del raw, pi, pd, pi_p, pd_p, ti, td
@@ -2696,12 +2824,15 @@ def record(rows_eth, launches_eth, rows, launches) -> None:
                 bound_by=p["bound"][1], max_abs_err=p["err"], shapes=p["shapes"],
                 launches=p["launches"], launches_on="phase 7's direct call: no pipeline path "
                 "runs the pose mode", split_ms=p["split_ms"])
+        if name in ("dense_nn_search", "pruned_nn_search"):
+            entry.update(split_ms=c["split_ms"], rescans=c["rescans"])
         if name == "dense_nn_search":
             entry["launches_on"] = "the profile path: profile_stages at ETH and colour width"
             col = rows["dense_nn_search_colour"]
             entry["max_abs_err"] = max(c["err"], col["err"])
             entry["colour"] = dict(ms=col["ms"], plain_ms=col["plain_ms"], bound_ms=col["bound"][0],
-                                   bound_by=col["bound"][1], shapes=col["shapes"])
+                                   bound_by=col["bound"][1], shapes=col["shapes"],
+                                   split_ms=col["split_ms"], rescans=col["rescans"])
         if name == "pruned_nn_search":
             entry["launches_on"] = "phase 7's direct calls: no pipeline path runs TPU kernel 7"
             entry["max_abs_err"] = max(c["err"], c["tight"]["err"], c["colour"]["err"])
@@ -2710,7 +2841,8 @@ def record(rows_eth, launches_eth, rows, launches) -> None:
                 r = c[key]
                 entry[key] = dict(ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
                                   bound_by=r["bound"][1], shapes=r["shapes"],
-                                  visited_cells=r["visited_cells"])
+                                  visited_cells=r["visited_cells"], split_ms=r["split_ms"],
+                                  rescans=r["rescans"])
         if name == "projective_window_search":
             entry["mode"] = "pixel_window"
             entry["split_ms"] = c["split_ms"]

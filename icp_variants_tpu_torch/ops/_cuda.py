@@ -69,10 +69,11 @@ KERNELS = {
         "projective_window_search.cu", "projective_window_search_launch",
         [_P] * 6 + [_I] * 6 + [_P]),
     "dense_nn_search": (
-        "dense_nn_search.cu", "dense_nn_search_launch", [_P] * 6 + [_I] * 4 + [_P]),
+        "dense_nn_search.cu", "dense_nn_search_launch",
+        [_P] * 5 + [ctypes.c_longlong] + [_I] * 4 + [_P]),
     "pruned_nn_search": (
         "dense_nn_search.cu", "pruned_nn_search_launch",
-        [_P] * 5 + [_F] + [_P] * 2 + [_I] * 7 + [_P]),
+        [_P] * 3 + [_F] + [_P] * 3 + [ctypes.c_longlong] + [_I] * 7 + [_P]),
     "visited_ablate": (
         "visited_ablate.cu", "visited_ablate_launch",
         [_P] * 6 + [_F] + [_P] * 2 + [_I] * 6 + [_P]),

@@ -56,6 +56,11 @@ KD_RADIUS_SPAN = 32
 # The visited search keeps one f32 bound per tile per warp in shared memory
 # (VS_SMEM_MAX in csrc/visited_search.cu).
 VISITED_MAX_TILES = 200 * 1024 // 4
+# The dense and pruned searches' query band and target group (NN_BAND and
+# NN_GROUP in csrc/dense_nn_search.cu): a CTA holds a band's rows, and the
+# packed target tiles are padded to whole groups.
+NN_BAND = 256
+NN_GROUP = 32
 
 
 def _pad_features(x: torch.Tensor) -> torch.Tensor:
@@ -586,10 +591,19 @@ def dense_nn_search(
     (the JAX package's ``nn_search_pallas``): ``(idx, d2)``, ties to the
     lowest target row. ``queries`` (B, N, D), ``targets`` (B, M, D), or one
     unbatched pair. A CUDA tensor launches ``csrc/dense_nn_search.cu`` (D =
-    3 or 6); a CPU tensor runs :func:`nn_search_xla`."""
+    3 or 6: the targets packed into a workspace, then one CTA per band of
+    :data:`NN_BAND` query rows walking every target); a CPU tensor runs
+    :func:`nn_search_xla`."""
     if queries.device.type == "cpu":
         return nn_search_xla(queries, targets)
     batched, (q, t) = _batch_args(queries, targets)
+    idx, d2 = _dense_nn_search_launch(q, t)
+    return (idx, d2) if batched else (idx[0], d2[0])
+
+
+def _dense_nn_search_launch(q, t, defines: tuple[str, ...] = ()):
+    """One launch of ``csrc/dense_nn_search.cu``'s dense entry on batched
+    CUDA tensors (with ``defines``, that measurement build, uncounted)."""
     d = _cuda.feature_dim("dense_nn_search", q.shape[-1])
     q, t = q.float().contiguous(), t.float().contiguous()
     b, n, m = q.shape[0], q.shape[1], t.shape[1]
@@ -598,8 +612,23 @@ def dense_nn_search(
     chk("targets", t, torch.float32, (b, m, d))
     d2 = torch.empty((b, n), dtype=torch.float32, device=q.device)
     idx = torch.empty((b, n), dtype=torch.int32, device=q.device)
-    _cuda.launch("dense_nn_search", q, norm2(q), t, norm2(t), d2, idx, b, n, m, d)
-    return (idx, d2) if batched else (idx[0], d2[0])
+    ws_bytes = _dense_search_workspace_bytes(b, m, d)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=q.device)
+    _cuda.launch("dense_nn_search", q, t, d2, idx, ws, ws_bytes, b, n, m, d, defines=defines)
+    return idx, d2
+
+
+def _record_bytes(d: int) -> int:
+    """Bytes of one packed target record [t_0 .. t_{d-1}, |t|^2]: whole
+    16-byte words."""
+    return 16 * ((d + 4) // 4)
+
+
+def _dense_search_workspace_bytes(b: int, m: int, d: int) -> int:
+    """Scratch bytes of one dense_nn_search launch (the kernel's
+    ``nn_workspace``): each pair's m targets packed as records, padded to
+    whole groups of :data:`NN_GROUP`."""
+    return b * (-(-m // NN_GROUP) * NN_GROUP) * _record_bytes(d)
 
 
 # The JAX package's nn_search dispatches on its backend; here the tensors'
@@ -681,25 +710,58 @@ def pruned_nn_search(
     D columns are the features. Returns ``(idx, d2)``, (B, N) each: idx -1
     (d2 = the bound) where nothing beats the bound; ties go to the lowest
     target row. A CUDA tensor launches ``csrc/dense_nn_search.cu`` (D = 3
-    or 6, ``tile_q`` a multiple of 64); a CPU tensor runs
+    or 6, any tiles: the visited (query band, target tile) items listed on
+    the card, walked by CTAs that fill it, each row's best merged with a
+    64-bit atomicMin; the workspace from
+    :func:`_pruned_search_workspace_bytes`); a CPU tensor runs
     :func:`pruned_nn_search_plain`."""
     if q.device.type == "cpu":
         return pruned_nn_search_plain(q, t, visit, bound_val, tile_q=tile_q, tile_t=tile_t)
+    return _pruned_nn_search_launch(q, t, visit, bound_val, tile_q, tile_t)
+
+
+def _pruned_nn_search_launch(q, t, visit, bound_val, tile_q, tile_t,
+                             defines: tuple[str, ...] = ()):
+    """One launch of ``csrc/dense_nn_search.cu``'s pruned entry on CUDA
+    tensors (with ``defines``, that measurement build, uncounted)."""
     b, n = q.shape[0], q.shape[1]
     d = _cuda.feature_dim("pruned_nn_search", q.shape[-1])
     m, ts = t.shape[1], t.shape[-1]
+    if ts < d:
+        raise ValueError(f"pruned_nn_search: targets have {ts} columns, queries {d}")
+    ws_bytes = _pruned_search_workspace_bytes(b, n, m, d, tile_q, tile_t)
     nqt, n_tiles = -(-n // tile_q), -(-m // tile_t)
     chk = _cuda.check_cuda_tensor
     chk("q", q, torch.float32, (b, n, d))
     chk("t", t, torch.float32, (b, m, ts))
     chk("visit", visit, torch.bool, (b, nqt, n_tiles))
-    if ts < d:
-        raise ValueError(f"pruned_nn_search: targets have {ts} columns, queries {d}")
     d2 = torch.empty((b, n), dtype=torch.float32, device=q.device)
     idx = torch.empty((b, n), dtype=torch.int32, device=q.device)
-    _cuda.launch("pruned_nn_search", q, norm2(q), t, norm2(t[..., :d]).contiguous(), visit,
-                 bound_val, d2, idx, b, n, m, ts, tile_q, tile_t, d)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=q.device)
+    _cuda.launch("pruned_nn_search", q, t, visit, bound_val, d2, idx, ws, ws_bytes, b, n, m, ts,
+                 tile_q, tile_t, d, defines=defines)
     return idx, d2
+
+
+def _pruned_search_workspace_bytes(b: int, n: int, m: int, d: int, tile_q: int,
+                                   tile_t: int) -> int:
+    """Scratch bytes of one pruned_nn_search launch (the kernel's
+    ``nn_workspace``, each piece 16-byte aligned): the target tiles packed
+    as records, each padded to whole groups of :data:`NN_GROUP`; a 64-bit
+    merge key per row; the item count; and room for every (pair, query
+    tile, band of :data:`NN_BAND` rows in the tile, target tile) item.
+    Raises on a tiling the kernel does not take: a tile below one row, a
+    packed row or an item id past an int32."""
+    if tile_q < 1 or tile_t < 1:
+        raise ValueError(f"pruned_nn_search: tiles must hold a row, got tile_q {tile_q}, "
+                         f"tile_t {tile_t}")
+    n_tiles, tile_pad = -(-m // tile_t), -(-tile_t // NN_GROUP) * NN_GROUP
+    n_items = b * -(-n // tile_q) * -(-tile_q // NN_BAND) * n_tiles
+    if n_tiles * tile_pad >= 2**31 or n_items >= 2**31:
+        raise ValueError(f"pruned_nn_search: {n_tiles} tiles of {tile_pad} packed rows and "
+                         f"{n_items} items: each must stay below 2**31")
+    return (_align16(b * n_tiles * tile_pad * _record_bytes(d)) + _align16(8 * b * n)
+            + _align16(4) + _align16(4 * n_items))
 
 
 def nn_search_pruned(

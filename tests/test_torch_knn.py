@@ -22,6 +22,8 @@ of rows, as ``tests/test_kdtree.py::test_in_kernel_pose_transform`` holds
 the JAX package itself. The profiler's increment: within atol 1e-5 of the
 JAX stage chain on the same mask."""
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,6 +43,7 @@ from icp_variants_tpu.pipeline import profiling as jprof
 from icp_variants_tpu_torch import convert
 from icp_variants_tpu_torch.core import cloud as tcloud
 from icp_variants_tpu_torch.core import se3 as tse3
+from icp_variants_tpu_torch.ops import _cuda
 from icp_variants_tpu_torch.ops import kdtree as tkd
 from icp_variants_tpu_torch.ops import knn as tknn
 from icp_variants_tpu_torch.pipeline import config as tconfig
@@ -552,3 +555,293 @@ def test_dense_and_pruned_match_plain_on_card(d):
     want = tkd.nn_search_kd_cached_oracle(qc[None], kd, 0.5, blk, pose=pose)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# The matchers' contract on hard inputs, and the pruned search's workspace
+# ---------------------------------------------------------------------------
+
+NN_N, NN_M = 1337, 5000          # neither a multiple of NN_BAND, tile_q or a group
+NN_TILE_QS = (100, 256, 600)     # below, at and above a band, no multiple of 64
+NN_EMPTY_TILE = 0                # the query tile of pair 0 that visits no cell
+
+
+def _nn_contract_pair(d, seed):
+    """One pair of hard inputs (f32 numpy, queries (NN_N, d), targets
+    (NN_M, d)): targets on a sheet 15 m from the origin ordered far to near
+    from the queries' centre (so a row's best falls late in the walk),
+    rows 100-139 repeated 2,600 rows later (ties across tiles, chunks and
+    groups) with queries on both copies, queries within 1e-5 of target rows
+    (their expansion d2 cancels, often below 0) and every 13th query at the
+    pad sentinel."""
+    q, t = _scene(NN_M, NN_N, d, seed=seed)
+    t = t[np.argsort(-((t[:, :3] - q[:, :3].mean(0)) ** 2).sum(1), kind="stable")]
+    t[2700:2740] = t[100:140]
+    q[3:123:3] = t[100:140]
+    rng = np.random.default_rng(seed)
+    near = t[rng.integers(0, NN_M, len(q[5::17]))]
+    q[5::17] = near + rng.normal(0, 1e-5, near.shape).astype(np.float32)
+    q[::13, :3] = tcloud.PAD_SENTINEL
+    return q, t
+
+
+def _nn_contract_inputs(d, seed=60):
+    """B = 3 pairs of :func:`_nn_contract_pair`; the bound of the pruned
+    search is the plain dense d2 of one row of pair 0 (that row ends at
+    (-1, bound)); returns (q, t, bound, that row) as CPU tensors."""
+    pairs = [_nn_contract_pair(d, seed + 7 * i) for i in range(3)]
+    q = torch.from_numpy(np.stack([p[0] for p in pairs]))
+    t = torch.from_numpy(np.stack([p[1] for p in pairs]))
+    _, d2 = tknn.nn_search_xla(q, t)
+    real = d2[0] < 1e3
+    row = int(torch.nonzero(real)[int(0.7 * int(real.sum()))])
+    return q, t, float(d2[0, row]), row
+
+
+def _nn_contract_visit(q, t, idx, row, tile_q, tile_t, seed):
+    """A random visit mask (B, ceil(N / tile_q), ceil(M / tile_t)) with
+    about 60% of the cells set, pair 0's query tile NN_EMPTY_TILE visiting
+    none and the bound row's nearest cell visited."""
+    b, n = q.shape[:2]
+    shape = (b, -(-n // tile_q), -(-t.shape[1] // tile_t))
+    visit = torch.from_numpy(np.random.default_rng(seed).random(shape) < 0.6)
+    visit[0, NN_EMPTY_TILE] = False
+    visit[0, row // tile_q, int(idx[0, row]) // tile_t] = True
+    return visit
+
+
+def _prefix_drops(q, t):
+    """For each query row of pair 0: the number of 32-row groups in which
+    its running minimum (in target row order) falls strictly."""
+    qn, tn = tknn.norm2(q[:1]), tknn.norm2(t[:1])
+    d2 = tknn.expanded_d2(q[:1], qn, t[:1], tn)[0]
+    m = d2.shape[1]
+    gmin = torch.nn.functional.pad(d2, (0, -m % 32), value=float("inf")).reshape(
+        d2.shape[0], -1, 32).amin(-1)
+    run = torch.cummin(gmin, dim=1).values
+    return (run[:, 1:] < run[:, :-1]).sum(1) + 1
+
+
+@pytest.mark.parametrize("d", [3, 6])
+def test_nn_contract_inputs_hold_hard_cases(d):
+    """The card contract test's inputs (built here on the CPU) hold every
+    case it names, and the two facts its kernels rest on hold on their
+    values in float64 emulation: fma(-2, g, s) rounds to the plain
+    version's s - 2g, and the ordered 64-bit key sorts (d2, row) as the
+    plain version's first minimum does."""
+    q, t, bound, row = _nn_contract_inputs(d)
+    b, n, m = q.shape[0], q.shape[1], t.shape[1]
+    assert b == 3 and n % tknn.NN_BAND and m % tknn.NN_GROUP
+    assert all(n % tq for tq in NN_TILE_QS)
+    assert -(-n // tknn.NN_BAND) * b < 132                      # fewer bands than SMs
+    assert bool((q[:, ::13, 0] == tcloud.PAD_SENTINEL).all())   # sentinel rows
+    idx, d2 = tknn.nn_search_xla(q, t)
+    assert int((d2 < 0).sum()) > 10                             # negative expansion d2
+    # Ties across tiles and chunks: rows whose least d2 sits at two rows
+    # 2,600 apart (the lower one found).
+    tied = (idx[:, 3:123:3] >= 100) & (idx[:, 3:123:3] < 140)
+    assert int(tied.sum()) > 30
+    qn, tn = tknn.norm2(q), tknn.norm2(t)
+    for p in range(b):
+        for r in torch.nonzero(tied[p]).flatten()[:5].tolist():
+            r = 3 + 3 * r
+            full = tknn.expanded_d2(q[p:p + 1, r:r + 1], qn[p:p + 1, r:r + 1], t[p:p + 1],
+                                    tn[p:p + 1])[0, 0]
+            at = torch.nonzero(full == d2[p, r]).flatten()
+            assert len(at) >= 2 and int(at[0]) == int(idx[p, r]) and int(at[-1]) >= 2700
+    # The best falls late: in several groups, and past the first half.
+    drops = _prefix_drops(q, t)
+    assert float((drops >= 4).float().mean()) > 0.5
+    assert float((idx[0] >= m // 2).float().mean()) > 0.25
+    # The pruned search's cases, at each tile_q.
+    assert float(d2[0, row]) == bound and row >= max(NN_TILE_QS)
+    for tq in NN_TILE_QS:
+        visit = _nn_contract_visit(q, t, idx, row, tq, tknn.INDEX_TILE_T, seed=tq)
+        assert not bool(visit[0, NN_EMPTY_TILE].any())
+        pi, pd = tknn.pruned_nn_search_plain(q, t, visit, bound, tile_q=tq,
+                                             tile_t=tknn.INDEX_TILE_T)
+        assert int(pi[0, row]) == -1 and float(pd[0, row]) == bound   # best == bound
+        assert bool((pi >= 0).any()) and bool((pi < 0).any())
+        assert bool((pd[pi >= 0] < 0).any())                    # negative d2 kept
+    # float64 emulation of the kernel's last step and of its merge key.
+    qf, tf = q[0, :200].numpy(), t[0].numpy()
+    f32 = np.float32
+    g = qf[:, None, 0] * tf[None, :, 0]
+    for j in range(1, d):
+        g = (g + qf[:, None, j] * tf[None, :, j]).astype(f32)
+    s = (tknn.norm2(q[0, :200]).numpy()[:, None] + tknn.norm2(t[0]).numpy()[None]).astype(f32)
+    plain = (s - (g * f32(2)).astype(f32)).astype(f32)
+    a, c = s.astype(np.float64), -2.0 * g.astype(np.float64)
+    e = a + c                                                   # TwoSum: e exact iff err 0
+    bb = e - a
+    assert not np.any((a - (e - bb)) + (c - bb))
+    np.testing.assert_array_equal(e.astype(f32).view(np.uint32), plain.view(np.uint32))
+    assert (plain < 0).any()
+    u = plain.view(np.uint32)
+    ordk = np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint64)
+    keys = (ordk << np.uint64(32)) | np.arange(plain.shape[1], dtype=np.uint64)[None]
+    want_i, want_d = tknn.nn_search_xla(q[0, :200], t[0])
+    best = keys.min(1)
+    np.testing.assert_array_equal((best & np.uint64(0xffffffff)).astype(np.int32),
+                                  want_i.numpy())
+    hi = (best >> np.uint64(32)).astype(np.uint32)
+    back = np.where(hi & 0x80000000, hi & 0x7fffffff, ~hi).astype(np.uint32).view(f32)
+    np.testing.assert_array_equal(back, want_d.numpy())
+    vals = np.array([-2.5, -1e-30, 0.0, 1e-30, 3.0, np.inf, -np.inf, 3.0, -2.5], f32)
+    rows = np.arange(len(vals), dtype=np.uint64)
+    uv = vals.view(np.uint32)
+    kv = (np.where(uv & 0x80000000, ~uv, uv | 0x80000000).astype(np.uint64) << np.uint64(32)) | rows
+    np.testing.assert_array_equal(np.argsort(kv, kind="stable"), np.lexsort((rows, vals)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 6])
+def test_dense_and_pruned_contract_on_card(d):
+    """dense_nn_search and pruned_nn_search equal their plain versions bit
+    for bit on the hard inputs that test_nn_contract_inputs_hold_hard_cases
+    checks: negative expansion d2, exact ties across tiles and chunks (the
+    lower row wins whichever CTA merges first), a row whose best equals the
+    bound (-1), a query tile that visits no cell, N a multiple of neither
+    the band nor tile_q at B = 3, targets ordered far to near, fewer bands
+    than SMs, sentinel query rows; tile_q below, at and above a band; the
+    targets with more columns than features. With 4-row target tiles the
+    visited cells outnumber the walk's CTAs, so each CTA walks runs of
+    several items, in the list's order (which changes from call to call:
+    several calls each); there the counting build shows that some CTA
+    walked a band's tiles out of order and that every rescan found its
+    row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+
+    dev = torch.device("cuda")
+    q, t, _, _ = _nn_contract_inputs(d)
+    q, t = q.to(dev), t.to(dev)
+    want = tknn.nn_search_xla(q, t)
+    got = tknn.dense_nn_search(q, t)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    real = want[1][0] < 1e3
+    row = int(torch.nonzero(real)[int(0.7 * int(real.sum()))])
+    bound = float(want[1][0, row])
+    t8 = torch.nn.functional.pad(t, (0, 8 - d))
+    for tq, tt in [(tq, tknn.INDEX_TILE_T) for tq in NN_TILE_QS] + [(256, 4)]:
+        visit = _nn_contract_visit(q, t, want[0], row, tq, tt, seed=tq).to(dev)
+        args = (q, t8, visit, bound)
+        kw = dict(tile_q=tq, tile_t=tt)
+        want_p = tknn.pruned_nn_search_plain(*args, **kw)
+        # The list's order changes from call to call: several calls, and with
+        # 4-row tiles on the counting build, whose counts show that CTAs
+        # walked a band's tiles out of order.
+        counts = (ctypes.c_ulonglong * 6)()
+        if tt == 4:
+            read = _cuda.variant("dense_nn_search.cu", chip_smoke.NN_COUNT_DEFINES).nn_search_counts
+            read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+            torch.cuda.synchronize()
+            assert read(counts, 1) == 0
+        for _ in range(3):
+            runs = [tknn.pruned_nn_search(*args, **kw)]
+            if tt == 4:
+                runs.append(tknn._pruned_nn_search_launch(*args, tq, tt,
+                                                          chip_smoke.NN_COUNT_DEFINES))
+            torch.cuda.synchronize()
+            for got_p in runs:
+                assert torch.equal(got_p[0], want_p[0]) and torch.equal(got_p[1], want_p[1]), tt
+        if tt == 4:
+            assert read(counts, 1) == 0
+            assert counts[4] == 0 and counts[5] > 0, list(counts)   # no miss; tiles out of order
+        assert int(want_p[0][0, row]) == -1 and bool((want_p[1][want_p[0] >= 0] < 0).any())
+
+
+@pytest.mark.parametrize("b,n,m,d,tile_q,tile_t", [
+    (1, 4352, 365_056, 3, 256, 512), (1, 307_200, 307_200, 6, 256, 512),
+    (3, 1337, 5000, 6, 600, 100)])
+def test_pruned_search_workspace_bytes(b, n, m, d, tile_q, tile_t):
+    """The wrapper's scratch size is the kernel's: the packed target tiles
+    (each padded to whole groups, 16 or 32 bytes a record), a 64-bit key a
+    row, the item count, then one int for every (pair, query tile, band,
+    target tile) item; each piece 16-byte aligned."""
+    n_tiles, pad = -(-m // tile_t), -(-tile_t // 32) * 32
+    items = b * -(-n // tile_q) * -(-tile_q // 256) * n_tiles
+    rec = 16 if d == 3 else 32
+    a16 = lambda x: -(-x // 16) * 16  # noqa: E731
+    want = a16(b * n_tiles * pad * rec) + a16(8 * b * n) + 16 + a16(4 * items)
+    assert tknn._pruned_search_workspace_bytes(b, n, m, d, tile_q, tile_t) == want
+    assert tknn._dense_search_workspace_bytes(b, m, d) == b * -(-m // 32) * 32 * rec
+
+
+def test_pruned_search_workspace_bytes_refuses():
+    """Tilings the kernel does not take are refused before any launch."""
+    ws = tknn._pruned_search_workspace_bytes
+    with pytest.raises(ValueError, match="hold a row"):
+        ws(1, 8, 100, 3, 0, 512)
+    with pytest.raises(ValueError, match="hold a row"):
+        ws(1, 8, 100, 3, 256, 0)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        ws(1, 8, 2**31, 3, 256, 1)       # packed rows past an int32
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        ws(64, 2**20, 2**20, 3, 1, 64)   # items past an int32
+
+
+@pytest.mark.parametrize("name", ["dense_nn_search", "pruned_nn_search"])
+def test_nn_search_launch_takes_its_workspace(monkeypatch, name):
+    """On a CUDA tensor each entry launches its kernel once with the
+    workspace its bytes function sizes, and arguments matching the C
+    entry's types (launch and checks replaced, meta tensors)."""
+    calls = []
+    monkeypatch.setattr(_cuda, "check_cuda_tensor", lambda *a: None)
+    monkeypatch.setattr(_cuda, "launch",
+                        lambda name, *args, defines=(): calls.append((name, args)))
+    b, n, m, d = 3, 1337, 5000, 6
+    q = torch.zeros((b, n, d), device="meta")
+    if name == "dense_nn_search":
+        tknn.dense_nn_search(q, torch.zeros((b, m, d), device="meta"))
+    else:
+        visit = torch.zeros((b, -(-n // 600), -(-m // 100)), dtype=torch.bool, device="meta")
+        tknn.pruned_nn_search(q, torch.zeros((b, m, 8), device="meta"), visit, 0.25,
+                              tile_q=600, tile_t=100)
+    (called, args), = calls
+    assert called == name
+    argtypes = _cuda.KERNELS[name][2]
+    assert len(args) + 1 == len(argtypes)  # the stream is appended at launch
+    for a, t in zip(args, argtypes):
+        if isinstance(a, torch.Tensor):
+            assert t is ctypes.c_void_p
+        elif isinstance(a, float):
+            assert t is ctypes.c_float
+        else:
+            assert t in (ctypes.c_int, ctypes.c_longlong), (a, t)
+    if name == "dense_nn_search":
+        ws, ws_bytes = args[4], args[5]
+        assert ws_bytes == ws.numel() == tknn._dense_search_workspace_bytes(b, m, d)
+        assert args[6:] == (b, n, m, d)
+    else:
+        assert args[3] == 0.25
+        ws, ws_bytes = args[6], args[7]
+        assert ws_bytes == ws.numel() == tknn._pruned_search_workspace_bytes(b, n, m, d, 600, 100)
+        assert args[8:] == (b, n, m, 8, 600, 100, d)
+
+
+def test_rescan_count_build_is_kept_apart_from_the_production_build():
+    """The dense and pruned searches' rescan-counting build (chip_smoke's
+    ``rescan_reading``) gets a library path of its own, so it never
+    replaces the production build; the source guards its counters and
+    their reader behind the define; and its launch path refuses CPU
+    tensors rather than running the plain version."""
+    import chip_smoke
+
+    src = _cuda.CSRC / "dense_nn_search.cu"
+    prod, counting = _cuda._lib_path(src), _cuda._lib_path(src, chip_smoke.NN_COUNT_DEFINES)
+    assert prod != counting and prod.parent == counting.parent
+    assert counting.name.startswith("dense_nn_search-nn_rescan_count-")
+    text = src.read_text()
+    assert text.count("#ifdef NN_RESCAN_COUNT") >= 3
+    guarded = text[text.rindex("#ifdef NN_RESCAN_COUNT"):]
+    assert 'extern "C" int nn_search_counts(' in guarded
+    q = torch.zeros((1, 4, 3))
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        tknn._dense_nn_search_launch(q, torch.zeros((1, 8, 3)), chip_smoke.NN_COUNT_DEFINES)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        tknn._pruned_nn_search_launch(q, torch.zeros((1, 8, 8)),
+                                      torch.ones((1, 1, 1), dtype=torch.bool), 1.0, 256, 512,
+                                      chip_smoke.NN_COUNT_DEFINES)
