@@ -125,7 +125,13 @@ Phases, in order; any failure exits nonzero:
    exact modes bit for bit, dmaonly (bound, -1), default and high within
    the order bound of their own plain version in d2 and idx, and within
    their TF32 bounds of the exact result), full against cKDTree, every mode timed (median of
-   20) beside the production visited_search on the same queries. The kd
+   20) beside the production visited_search on the same queries; the
+   kernel runs one thread block cluster per query tile: the cluster's
+   size, the clusters resident at once, each mode's issue floor (its
+   instructions a (row, column) stated) and the chain floor of the
+   longest walk printed, the ``-DABL_COUNT`` build's chunks scored by
+   every CTA of every tile's cluster held equal to the plain version's in
+   every mode. The kd
    block search's probe decomposition (``scripts.resident_bench``) at the
    ETH shapes (16 pairs x 4,736 queries, k = 4): box_topk, the probe and
    the full search timed; the probe writes (binit, -1) on every row and the
@@ -638,11 +644,13 @@ def main() -> int:
     print(f"  card: {card}")
     print(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
-    build_s = _cuda.build_all()
+    build_s = _cuda.build_all(measurement_builds())
     n_src = len({src for src, _, _ in _cuda.KERNELS.values()})
     print(f"  kernel build: {build_s:.2f} s (nvcc, {len(_cuda.KERNELS)} kernels from {n_src} "
-          "sources in parallel)")
+          f"sources and {len(measurement_builds())} measurement builds, in parallel)")
     for name, log in _cuda.BUILD_LOG.items():
+        if " " in name:
+            continue  # a measurement build
         for line in log.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
@@ -663,6 +671,17 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def measurement_builds():
+    """The measurement builds the phases load, ``(source, defines)``, built
+    beside the production libraries in phase 1."""
+    from icp_variants_tpu_torch.scripts import knn_ablate, resident_bench
+
+    return (("kd_block_search.cu", resident_bench.LANE_DEFINES),
+            ("projective_window_search.cu", ("PWS_LOADS_ONLY",)),
+            ("dense_nn_search.cu", NN_COUNT_DEFINES),
+            ("visited_ablate.cu", knn_ablate.COUNT_DEFINES))
 
 
 def eth_phase(n_pairs: int = BATCH_PAIRS, n_points: int = N_POINTS):
@@ -2537,64 +2556,58 @@ def ablation_queries():
     return q.astype(np.float32), tgt.astype(np.float32)
 
 
-def tooling_phase(eth):
-    """Phase 8 on the card: the measurement tools. ``eth`` is the ETH
-    phase's data. Returns the kernel rows of the ablation kernel and of the
-    block search's probe. Raises :class:`Failure` on a failed check."""
+def ablation_cluster(inp, kern, runs):
+    """The ablation kernel's cluster launch at phase 8's shapes: its fit
+    printed, and the ``-DABL_COUNT`` build's chunks scored per CTA checked
+    equal to the plain version's ``runs`` and its result to the production
+    build's ``kern``. Returns each mode's floors, for phase 8's printed
+    lines only (they are worked out, not measured): its instructions a
+    (row, column) (``knn_ablate.issue_instructions``), its issue floor (the
+    chunks scored at half of PEAK_F32_OPS: one instruction a lane a clock)
+    and its chain floor (the longest walk's chunks, each one chunk's
+    instructions on the cluster's SMs)."""
     import torch
 
-    from icp_variants_tpu_torch.core import cloud as cloud_lib
-    from icp_variants_tpu_torch.ops import _cuda, kdtree, knn
-    from icp_variants_tpu_torch.pipeline import icp, profiling
-    from icp_variants_tpu_torch.pipeline.config import (
-        ICPConfig, Metric, Minimizer, Selection,
-    )
-    from icp_variants_tpu_torch.scripts import cuda_ms, knn_ablate, resident_bench
+    from icp_variants_tpu_torch.scripts import knn_ablate
+
+    fit = {mode: knn_ablate.cluster_fit(inp, mode) for mode in knn_ablate.MODES}
+    size = fit["full"]["cluster"]
+    print(f"  visited_ablate cluster: {size} CTAs a query tile, "
+          f"{inp.counts.shape[0] * size} CTAs of {fit['full']['threads']} threads; clusters "
+          "resident at once / CTAs an SM / dynamic shared memory a CTA: "
+          + ", ".join(f"{m} {f['clusters_resident']} / {f['ctas_per_sm']} / {f['smem_bytes']} B"
+                      for m, f in fit.items()), flush=True)
+    cols = inp.chunk * inp.tile_t
+    sm_rate = PEAK_F32_OPS / 2 / torch.cuda.get_device_properties(0).multi_processor_count
+    floors = {}
+    for mode in knn_ablate.MODES:
+        instr = knn_ablate.issue_instructions(mode, inp.d)
+        n_run = runs[mode]
+        pairs = int(n_run.sum()) * cols * knn_ablate.TILE_Q
+        chain = int(n_run.max()) * knn_ablate.TILE_Q * cols * instr / (size * sm_rate) * 1e3
+        floors[mode] = (instr, pairs * instr / (PEAK_F32_OPS / 2) * 1e3, chain)
+        d2, idx, chunks = knn_ablate.ablate_counted(inp, mode)
+        check(torch.equal(d2, kern[mode][0]) and torch.equal(idx, kern[mode][1]),
+              f"visited_ablate {mode}: the -DABL_COUNT build's result equal to the production "
+              "build's")
+        check(bool((chunks == n_run.cpu()[:, None]).all()),
+              f"visited_ablate {mode}: the -DABL_COUNT build's chunks scored equal to the plain "
+              f"version's in all {chunks.numel()} CTAs ({int(n_run.sum())} chunks over "
+              f"{len(n_run)} tiles, longest walk {int(n_run.max())})")
+    return floors
+
+
+def ablation_phase():
+    """Phase 8's TPU kernel 8 on the card: the visited-list ablation
+    (``scripts.knn_ablate``, kernel ``visited_ablate``) in all seven modes
+    on the JAX ablation script's inputs; returns the kernel's row. Raises
+    :class:`Failure` on a failed check."""
+    import torch
+
+    from icp_variants_tpu_torch.ops import _cuda, knn
+    from icp_variants_tpu_torch.scripts import cuda_ms, knn_ablate
 
     dev = torch.device("cuda")
-    torch.cuda.empty_cache()
-    print("phase 8: tooling: the fused stage profiler, the visited-list ablation, the kd "
-          "block search's probe decomposition", flush=True)
-    rows = {}
-
-    # ---- the fused stage profiler on ETH pair 0, both arms -----------------
-    src0 = cloud_lib.Cloud(*(f[0] for f in eth["sources"]))
-    tgt0 = eth["targets_host"][0].to(dev)
-    kd0 = kdtree.KDIndex(*(None if f is None else f[0] for f in eth["kd"]))
-    fused = {}
-    for arm, checks in (("exact", 0), ("checks16", CHECKS_APPROX)):
-        cfg = ICPConfig(metric=Metric.SYMMETRIC, minimizer=Minimizer.LINEAR,
-                        selection=Selection.RANDOM, selection_proba=SELECTION_P,
-                        n_iterations=N_ITERATIONS, max_distance=MAX_DISTANCE,
-                        matching_checks=checks)
-        t0 = time.perf_counter()
-        rep = profiling.fused_report(cfg, src0, tgt0, repetitions=FUSED_REPS, kd_index=kd0,
-                                     device=dev)
-        print(f"  fused_report (ETH pair 0, {arm}; {time.perf_counter() - t0:.1f} s):")
-        for line in rep.text.splitlines():
-            print(f"    {line}")
-        times, dtimes = rep.host, rep.device
-        total = (times.selection + times.matching + times.weighting + times.rejection
-                 + times.solver + times.convergence)
-        check(total * times.n_iterations <= 1.5 * times.full_run + 0.05,
-              f"fused profile ({arm}): stage sum {total * 1e3:.3f} ms x {times.n_iterations} "
-              f"<= 1.5 x full run {times.full_run:.4f} s + 0.05 s")
-        # The host's clock cannot resolve the matching stage of one
-        # host-bound pair; the card's kernel time can.
-        check(dtimes is not None and dtimes.matching > 0,
-              f"fused profile ({arm}): the matching stage's kernel time > 0 "
-              f"({dtimes.matching * 1e3 if dtimes else float('nan'):.4f} ms per iteration)")
-        fused[arm] = {f"{where}_{k}": v for where, t in (("host", times), ("device", dtimes))
-                      for k, v in dict(
-                          floor_ms=t.overhead * 1e3, selection_ms=t.selection * 1e3,
-                          matching_ms=t.matching * 1e3, weighting_ms=t.weighting * 1e3,
-                          rejection_ms=t.rejection * 1e3, solver_ms=t.solver * 1e3,
-                          convergence_ms=t.convergence * 1e3, full_run_s=t.full_run).items()}
-        fused[arm]["n_iterations"] = times.n_iterations
-    print("  fused profile: " + json.dumps(fused))
-    del src0, tgt0, kd0
-
-    # ---- TPU kernel 8: the visited-list ablation ---------------------------
     t0 = time.perf_counter()
     q_np, t_np = ablation_queries()
     inp = knn_ablate.ablate_inputs(torch.from_numpy(q_np).to(dev),
@@ -2652,6 +2665,7 @@ def tooling_phase(eth):
     check(res is not None,
           f"visited_ablate full: found exactly where cKDTree's distance is below the bound "
           f"beyond the rounding, each of its {len(q_np)} query slots within it")
+    floors = ablation_cluster(inp, kern, runs)
     ms = knn_ablate.ablate(inp, reps=ABLATE_REPS)
     modes = {}
     for mode in knn_ablate.MODES:
@@ -2661,10 +2675,12 @@ def tooling_phase(eth):
         modes[mode] = dict(ms=ms[mode], plain_ms=plain_ms[mode], bound_ms=max(t_b, t_o),
                            bound_by="bytes" if t_b >= t_o else "operations",
                            max_abs_err=errs[mode], chunks_run=int(runs[mode].sum()))
+        m = modes[mode]
+        instr, issue_ms, chain_ms = floors[mode]
         print(f"  visited_ablate {mode:8s}: kernel {ms[mode]:.4f} ms, plain "
-              f"{plain_ms[mode]:.4f} ms, bound {modes[mode]['bound_ms']:.5f} ms "
-              f"({modes[mode]['bound_by']}, {kind}), {modes[mode]['chunks_run']} chunks scored",
-              flush=True)
+              f"{plain_ms[mode]:.4f} ms, bound {m['bound_ms']:.5f} ms ({m['bound_by']}, {kind}), "
+              f"issue floor {issue_ms:.5f} ms ({instr} instructions a (row, column)), chain "
+              f"floor {chain_ms:.5f} ms; {m['chunks_run']} chunks scored", flush=True)
     # The production fallback kernel on the same queries at the same bound.
     q_dev = torch.from_numpy(q_np).to(dev)[None].contiguous()
     fidx = knn.build_target_index(torch.from_numpy(t_np).to(dev)[None], tile_t=knn.V2_TILE_T)
@@ -2675,7 +2691,7 @@ def tooling_phase(eth):
     print(f"  visited_search (production, {knn.V2_TILE_T}-row tiles) on the same queries: "
           f"{prod_ms:.4f} ms; d2 equal to the direct mode's on {same:.4f} of the rows",
           flush=True)
-    rows["visited_ablate"] = dict(
+    row = dict(
         modes=modes, direct_launches=direct, visited_search_ms=prod_ms,
         shapes=f"{len(q_np)} query slots ({nqt} tiles of {knn_ablate.TILE_Q}) against "
                f"{n_real} targets ({inp.pages.shape[0]} tiles of {inp.tile_t}), chunk "
@@ -2683,6 +2699,68 @@ def tooling_phase(eth):
         plain_on="all query tiles side by side, chunk by chunk")
     del inp, kern, plain, q_dev, fidx
     torch.cuda.empty_cache()
+    return row
+
+
+def tooling_phase(eth):
+    """Phase 8 on the card: the measurement tools. ``eth`` is the ETH
+    phase's data. Returns the kernel rows of the ablation kernel and of the
+    block search's probe. Raises :class:`Failure` on a failed check."""
+    import torch
+
+    from icp_variants_tpu_torch.core import cloud as cloud_lib
+    from icp_variants_tpu_torch.ops import _cuda, kdtree
+    from icp_variants_tpu_torch.pipeline import profiling
+    from icp_variants_tpu_torch.pipeline.config import (
+        ICPConfig, Metric, Minimizer, Selection,
+    )
+    from icp_variants_tpu_torch.scripts import cuda_ms, resident_bench
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    print("phase 8: tooling: the fused stage profiler, the visited-list ablation, the kd "
+          "block search's probe decomposition", flush=True)
+    rows = {}
+
+    # ---- the fused stage profiler on ETH pair 0, both arms -----------------
+    src0 = cloud_lib.Cloud(*(f[0] for f in eth["sources"]))
+    tgt0 = eth["targets_host"][0].to(dev)
+    kd0 = kdtree.KDIndex(*(None if f is None else f[0] for f in eth["kd"]))
+    fused = {}
+    for arm, checks in (("exact", 0), ("checks16", CHECKS_APPROX)):
+        cfg = ICPConfig(metric=Metric.SYMMETRIC, minimizer=Minimizer.LINEAR,
+                        selection=Selection.RANDOM, selection_proba=SELECTION_P,
+                        n_iterations=N_ITERATIONS, max_distance=MAX_DISTANCE,
+                        matching_checks=checks)
+        t0 = time.perf_counter()
+        rep = profiling.fused_report(cfg, src0, tgt0, repetitions=FUSED_REPS, kd_index=kd0,
+                                     device=dev)
+        print(f"  fused_report (ETH pair 0, {arm}; {time.perf_counter() - t0:.1f} s):")
+        for line in rep.text.splitlines():
+            print(f"    {line}")
+        times, dtimes = rep.host, rep.device
+        total = (times.selection + times.matching + times.weighting + times.rejection
+                 + times.solver + times.convergence)
+        check(total * times.n_iterations <= 1.5 * times.full_run + 0.05,
+              f"fused profile ({arm}): stage sum {total * 1e3:.3f} ms x {times.n_iterations} "
+              f"<= 1.5 x full run {times.full_run:.4f} s + 0.05 s")
+        # The host's clock cannot resolve the matching stage of one
+        # host-bound pair; the card's kernel time can.
+        check(dtimes is not None and dtimes.matching > 0,
+              f"fused profile ({arm}): the matching stage's kernel time > 0 "
+              f"({dtimes.matching * 1e3 if dtimes else float('nan'):.4f} ms per iteration)")
+        fused[arm] = {f"{where}_{k}": v for where, t in (("host", times), ("device", dtimes))
+                      for k, v in dict(
+                          floor_ms=t.overhead * 1e3, selection_ms=t.selection * 1e3,
+                          matching_ms=t.matching * 1e3, weighting_ms=t.weighting * 1e3,
+                          rejection_ms=t.rejection * 1e3, solver_ms=t.solver * 1e3,
+                          convergence_ms=t.convergence * 1e3, full_run_s=t.full_run).items()}
+        fused[arm]["n_iterations"] = times.n_iterations
+    print("  fused profile: " + json.dumps(fused))
+    del src0, tgt0, kd0
+
+    rows["visited_ablate"] = ablation_phase()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
     # ---- TPU kernel 2's probe: resident_bench.probe_decomp ------------------
     kd = eth["kd"]

@@ -132,28 +132,30 @@ def _load(path: Path, src_name: str) -> ctypes.CDLL:
     return lib
 
 
-def build_all() -> float:
-    """Build every kernel library that is missing (one nvcc per source, in
-    parallel) and load them all; returns the seconds spent. Raises on any
-    build failure."""
+def build_all(variants: tuple[tuple[str, tuple[str, ...]], ...] = ()) -> float:
+    """Build every kernel library that is missing, and the :func:`variant`
+    builds ``(source file, defines)`` in ``variants`` (one nvcc per
+    library, all in parallel), and load them all; returns the seconds
+    spent. Raises on any build failure."""
     with _lock:
-        if len(_libs) == len(KERNELS):
+        todo = [(src, ()) for src in sorted({src for src, _, _ in KERNELS.values()})
+                if len(_libs) < len(KERNELS)]
+        todo += [(src, tuple(d)) for src, d in variants if (src, tuple(d)) not in _variants]
+        if not todo:
             return 0.0
         t0 = time.perf_counter()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         jobs = {}
-        for src_name in sorted({src for src, _, _ in KERNELS.values()}):
-            src = CSRC / src_name
-            out = _lib_path(src)
-            if out.exists():
-                continue
-            jobs[src_name] = (out, *_start_nvcc(src, out))
+        for src_name, defines in todo:
+            out = _lib_path(CSRC / src_name, defines)
+            if not out.exists():
+                jobs[(src_name, defines)] = (out, *_start_nvcc(CSRC / src_name, out, defines))
         failed = []
-        for src_name, (out, tmp, proc) in jobs.items():
+        for (src_name, defines), (out, tmp, proc) in jobs.items():
             log, _ = proc.communicate()
-            BUILD_LOG[src_name] = log
+            BUILD_LOG[" ".join((src_name, *defines))] = log
             if proc.returncode != 0:
-                failed.append(f"{src_name} (nvcc rc {proc.returncode}):\n{log}")
+                failed.append(f"{src_name} {defines} (nvcc rc {proc.returncode}):\n{log}")
             else:
                 os.replace(tmp, out)
         if failed:
@@ -163,6 +165,10 @@ def build_all() -> float:
             if src_name not in loaded:
                 loaded[src_name] = _load(_lib_path(CSRC / src_name), src_name)
             _libs[name] = loaded[src_name]
+        for src_name, defines in todo:
+            if defines:
+                _variants[(src_name, defines)] = _load(_lib_path(CSRC / src_name, defines),
+                                                       src_name)
         return time.perf_counter() - t0
 
 
@@ -188,16 +194,21 @@ def variant(src_name: str, defines: tuple[str, ...]) -> ctypes.CDLL:
         return _variants[key]
 
 
+def library(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (its :func:`variant` build with
+    ``defines``), for its C entries other than the launch."""
+    if defines:
+        return variant(KERNELS[name][0], defines)
+    build_all()
+    return _libs[name]
+
+
 def launch(name: str, *args, defines: tuple[str, ...] = ()) -> None:
     """Launch kernel ``name`` on the current stream of its tensors' device.
     ``args`` are tensors (passed by data pointer), Python ints and floats,
     in the order of the C function; the stream is appended here. With
     ``defines``, the :func:`variant` build of its source runs, uncounted."""
-    if defines:
-        lib = variant(KERNELS[name][0], defines)
-    else:
-        build_all()
-        lib = _libs[name]
+    lib = library(name, defines)
     devices = {a.device for a in args if isinstance(a, torch.Tensor)}
     if len(devices) != 1:
         raise ValueError(f"{name}: tensors on several devices {sorted(map(str, devices))}")

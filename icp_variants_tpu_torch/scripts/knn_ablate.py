@@ -21,10 +21,18 @@ plain version's (:func:`tf32_check`). The kernel is ``csrc/visited_ablate.cu``; 
 launches it on CUDA tensors and runs :func:`ablate_search_plain` on CPU
 tensors. On the card :func:`ablate` times every mode; ``chip_smoke.py``
 runs it on the JAX script's own inputs (:func:`ablate_inputs`).
+
+The kernel runs one thread block cluster of :data:`CLUSTER` CTAs per query
+tile; CTA r scores the columns :func:`cluster_slices` gives it of every
+chunk, and the cluster merges the slices' answers per chunk (noprune: once,
+at the end). :func:`cluster_fit` reads a launch's fit on the card, and
+:func:`ablate_counted` runs the ``-DABL_COUNT`` build, which records the
+chunks each CTA scored.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -35,12 +43,16 @@ from icp_variants_tpu_torch.scripts import cuda_ms
 
 # The kernel's mode numbers are the positions in MODES.
 MODES = ("full", "noprune", "maxonly", "dmaonly", "default", "high", "direct")
-TILE_Q = 256        # query rows per tile (one CTA)
+TILE_Q = 256        # query rows per tile (one cluster of CTAs)
 TILE_T = 512        # target rows per tile
 CHUNK = 8           # target tiles scored together
 # The JAX script's visit-list width is a multiple of this many tiles.
 _LIST_MULTIPLE = 128
 SMEM_LIMIT = 227 * 1024
+# The production build's CTAs a cluster (csrc/visited_ablate.cu ABL_CLUSTER).
+CLUSTER = 16
+# The counting build's define: it records the chunks each CTA scored.
+COUNT_DEFINES = ("ABL_COUNT",)
 # First-order TF32 rounding factors of tf32_error_bound (see there).
 TF32_GAMMA = {"default": 1.01 * 2.0 ** -9, "high": 2.0 ** -15}
 # The factor of tf32_order_bound: a TF32 mode's kernel against its plain
@@ -104,6 +116,38 @@ def ablate_inputs(queries: torch.Tensor, targets: torch.Tensor, max_distance: fl
         q_aug=q_aug, qn2=qn2, pages=augment_pages(index), vlist=vlist,
         suffix=suffix.contiguous(), counts=((counts + chunk - 1) // chunk).to(torch.int32),
         bound=bound, tile_t=tile_t, chunk=chunk, d=d)
+
+
+def issue_instructions(mode: str, d: int) -> int:
+    """Instructions per (row, column) that bound ``mode``'s issue on the
+    CUDA cores at ``d`` features (``csrc/visited_ablate.cu``): 2D + 2 for
+    the expansion (D + 1 FMUL, D FADD, one FMNMX), 3D for direct
+    differences (D FADD, D FMUL, D - 1 FADD, one FMNMX), 3 per accumulator
+    element of the TF32 modes (a compare and two selects; the products run
+    on the tensor cores), none for dmaonly."""
+    if mode not in MODES:
+        raise ValueError(f"unknown ablation mode {mode!r}; modes are {MODES}")
+    return {"direct": 3 * d, "default": 3, "high": 3, "dmaonly": 0}.get(mode, 2 * d + 2)
+
+
+def cluster_slices(cols: int, cluster: int = CLUSTER) -> list[tuple[int, int]]:
+    """The chunk columns ``[lo, hi)`` of each CTA rank of a cluster: slices
+    of ``ceil(cols / cluster)`` rounded up to 4 columns (so every staged
+    slice is 16-byte aligned), the last ones short or empty."""
+    w = -(-cols // cluster)
+    w = (w + 3) // 4 * 4
+    return [(min(cols, r * w), min(cols, r * w + w)) for r in range(cluster)]
+
+
+def _smem_bytes(mode: str, rows: int, cols: int, max_v: int) -> int:
+    """Dynamic shared memory of one CTA: where ``mode`` prunes, a receive
+    buffer of two chunks' partials (8 bytes a row from each CTA); two
+    stages of ``rows`` staged rows of its slice, at a pitch of the slice
+    width rounded up to 32, plus 8; then the tile's visit list and
+    suffix."""
+    w = cluster_slices(cols)[0][1]
+    recv = 0 if mode in ("noprune", "dmaonly") else 2 * CLUSTER * TILE_Q * 8
+    return recv + 2 * rows * (-(-w // 32) * 32 + 8) * 4 + max_v * 8
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -190,13 +234,14 @@ def ablate_search_plain(inp: AblateInputs, mode: str) -> tuple[torch.Tensor, tor
     return d2, idx
 
 
-def ablate_search(inp: AblateInputs, mode: str) -> tuple[torch.Tensor, torch.Tensor]:
+def ablate_search(inp: AblateInputs, mode: str,
+                  defines: tuple[str, ...] = ()) -> tuple[torch.Tensor, torch.Tensor]:
     """The visited-list search in ``mode`` (one of :data:`MODES`):
     ``(d2, idx)``, (nqt * TILE_Q,) each. idx is the target's tiled position
     (tile * tile_t + slot), -1 where nothing beats the bound (d2 is then the
     bound) and everywhere in maxonly and dmaonly. A CUDA tensor launches
-    ``csrc/visited_ablate.cu`` (D = 3 or 6); a CPU tensor runs
-    :func:`ablate_search_plain`."""
+    ``csrc/visited_ablate.cu`` (D = 3 or 6; with ``defines``, that build of
+    it, uncounted); a CPU tensor runs :func:`ablate_search_plain`."""
     if mode not in MODES:
         raise ValueError(f"unknown ablation mode {mode!r}; modes are {MODES}")
     if inp.q_aug.device.type == "cpu":
@@ -212,17 +257,51 @@ def ablate_search(inp: AblateInputs, mode: str) -> tuple[torch.Tensor, torch.Ten
     chk("suffix", inp.suffix, torch.float32, (nqt, max_v))
     chk("counts", inp.counts, torch.int32, (nqt,))
     rows = d if mode == "direct" else d + 1
-    smem = 2 * rows * (inp.chunk * tile_t + 8) * 4
+    smem = _smem_bytes(mode, rows, inp.chunk * tile_t, max_v)
     if smem > SMEM_LIMIT or tile_t % 8 or max_v % inp.chunk:
         raise ValueError(f"visited_ablate: chunk {inp.chunk} x tile_t {tile_t} needs {smem} B "
-                         f"of shared memory (at most {SMEM_LIMIT}); tile_t must be a multiple "
-                         f"of 8 and max_v {max_v} of the chunk")
+                         f"of shared memory a CTA (at most {SMEM_LIMIT}); tile_t must be a "
+                         f"multiple of 8 and max_v {max_v} of the chunk")
     d2 = torch.empty((nqt * TILE_Q,), dtype=torch.float32, device=inp.q_aug.device)
     idx = torch.empty((nqt * TILE_Q,), dtype=torch.int32, device=inp.q_aug.device)
     _cuda.launch("visited_ablate", inp.q_aug, inp.qn2, inp.pages, inp.vlist, inp.suffix,
                  inp.counts, inp.bound, d2, idx, nqt, max_v, tile_t, inp.chunk,
-                 MODES.index(mode), d)
+                 MODES.index(mode), d, defines=defines)
     return d2, idx
+
+
+def cluster_fit(inp: AblateInputs, mode: str) -> dict:
+    """The fit of a launch of ``mode`` on these inputs on the current card:
+    CTAs a cluster, clusters resident at once
+    (``cudaOccupancyMaxActiveClusters``), CTAs an SM holds, threads a CTA
+    and dynamic shared memory a CTA. Makes no launch."""
+    out = (ctypes.c_int * 5)()
+    fn = _cuda.library("visited_ablate").visited_ablate_fit
+    fn.argtypes, fn.restype = [ctypes.c_int] * 6 + [ctypes.c_void_p], ctypes.c_int
+    nqt, max_v = inp.vlist.shape
+    err = fn(nqt, max_v, inp.tile_t, inp.chunk, MODES.index(mode), inp.d, out)
+    if err:
+        raise RuntimeError(f"visited_ablate_fit failed ({err})")
+    return dict(zip(("cluster", "clusters_resident", "ctas_per_sm", "threads", "smem_bytes"),
+                    out))
+
+
+def ablate_counted(inp: AblateInputs, mode: str):
+    """One search in ``mode`` on the counting build (``-DABL_COUNT``;
+    uncounted): ``(d2, idx, chunks)``, chunks (nqt, CLUSTER) int64 on the
+    CPU, the chunks each CTA of each query tile's cluster scored (staged,
+    for dmaonly): every CTA of a tile's cluster takes the same walk, and
+    it equals :func:`_ablate_plain`'s count."""
+    d2, idx = ablate_search(inp, mode, COUNT_DEFINES)
+    nqt = inp.counts.shape[0]
+    out = torch.zeros((nqt, CLUSTER), dtype=torch.int32)
+    fn = _cuda.library("visited_ablate", COUNT_DEFINES).visited_ablate_counts
+    fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    torch.cuda.synchronize(inp.q_aug.device)
+    err = fn(out.data_ptr(), nqt * CLUSTER)
+    if err:
+        raise RuntimeError(f"visited_ablate_counts failed ({err})")
+    return d2, idx, out.long()
 
 
 def _abs_products(inp: AblateInputs, idx: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Time the dense and tile-pruned expansion matchers of checkouts in turns.
 
-    python3 -m icp_variants_tpu_torch.scripts.nn_ab ROOT [ROOT ...]
+    python3 -m icp_variants_tpu_torch.scripts.nn_ab [--ablation] ROOT [ROOT ...]
 
 Each ROOT is the root of a checkout of the repository, for example the
 parent commit unpacked with ``git archive`` into a git-ignored directory
@@ -20,7 +20,13 @@ and 0.1 (colour) (median of 20), and hashes each result. Then it calls
 repetitions each) and reads the matching stage and the stages' total per
 iteration of the second call, and the whole wall (``total_wall``, the
 warm-up pass included) of both: the first call in the process is the cold
-one. Needs a card.
+one.
+
+With ``--ablation`` each worker times the visited-list ablation kernel
+instead: on phase 8's inputs (``chip_smoke.ablation_queries``: the JAX
+ablation script's 4,736 query slots against its 365,000 targets, chunk 8,
+squared bound 10) it hashes each mode's result and times each of the
+seven modes (median of 20 CUDA-event timings). Needs a card.
 
 Prints, per worker, one JSON line; then per reading the ms of each run in
 order, and whether every run gave the same result bit for bit.
@@ -35,24 +41,55 @@ import subprocess
 import sys
 
 
-def _worker() -> dict:
-    """Time the matchers of the checkout at the front of ``sys.path``."""
+def _worker(ablation: bool) -> dict:
+    """Time the matchers, or the ablation kernel, of the checkout at the
+    front of ``sys.path``."""
     import importlib.util
     import pathlib
-
-    import torch
 
     # This checkout's chip_smoke.py: its imports of the port resolve to ROOT's.
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", pathlib.Path(__file__).resolve().parents[2] / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    from icp_variants_tpu_torch.ops import _cuda
+
+    _cuda.build_all()
+    return _ablation(cs) if ablation else _matchers(cs)
+
+
+def _result_sha(idx, d2) -> str:
+    return hashlib.sha256(idx.cpu().numpy().tobytes() + d2.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _ablation(cs) -> dict:
+    """Each mode of the ablation kernel on phase 8's inputs: its hash and ms."""
+    import torch
+
+    from icp_variants_tpu_torch.scripts import knn_ablate
+
+    dev = torch.device("cuda")
+    q, t = cs.ablation_queries()
+    inp = knn_ablate.ablate_inputs(torch.from_numpy(q).to(dev), torch.from_numpy(t).to(dev),
+                                   cs.MAX_DISTANCE)
+    out = {"root": os.getcwd(), "ms": {}, "sha": {}}
+    for mode in knn_ablate.MODES:
+        d2, idx = knn_ablate.ablate_search(inp, mode)
+        out["sha"][mode] = _result_sha(idx, d2)
+        out["ms"][mode] = cs.time_ms(lambda mode=mode: knn_ablate.ablate_search(inp, mode),
+                                     cs.ABLATE_REPS)
+    return out
+
+
+def _matchers(cs) -> dict:
+    """The dense and pruned matchers' readings and profile_stages'."""
+    import torch
+
     from icp_variants_tpu_torch.core import cloud as cloud_lib
-    from icp_variants_tpu_torch.ops import _cuda, knn
+    from icp_variants_tpu_torch.ops import knn
     from icp_variants_tpu_torch.pipeline import icp, profiling
     from icp_variants_tpu_torch.pipeline.config import ICPConfig, Metric, Minimizer, Selection
 
-    _cuda.build_all()
     dev = torch.device("cuda")
     sp, sn, tp, tn = cs.make_pairs(1)[0]
     src = cloud_lib.from_numpy(sp, normals=sn, morton_order=True, device=dev)
@@ -76,8 +113,7 @@ def _worker() -> dict:
     out = {"root": os.getcwd(), "ms": {}, "sha": {}}
     for name, fn in calls.items():
         idx, d2 = fn()
-        out["sha"][name] = hashlib.sha256(
-            idx.cpu().numpy().tobytes() + d2.cpu().numpy().tobytes()).hexdigest()[:16]
+        out["sha"][name] = _result_sha(idx, d2)
         out["ms"][name] = cs.time_ms(fn, 5 if name.startswith("dense") else 20)
     cfgs = {"eth": ICPConfig(metric=Metric.SYMMETRIC, minimizer=Minimizer.LINEAR,
                              selection=Selection.RANDOM, selection_proba=cs.SELECTION_P,
@@ -97,13 +133,16 @@ def _worker() -> dict:
     return out
 
 
-def main(roots: list[str]) -> int:
+def main(runs_of: list[str], ablation: bool = False) -> int:
+    """Run this file's worker once per checkout root in ``runs_of``, in
+    order, each in its checkout (``ablation``: the ablation kernel's
+    readings). Prints each worker's JSON line, then each reading by run."""
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     runs = []
-    for i, root in enumerate(roots):
-        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker"],
-                           cwd=os.path.abspath(root), capture_output=True, text=True)
+    worker = [sys.executable, os.path.abspath(__file__), "--worker"] + ["--ablation"] * ablation
+    for i, root in enumerate(runs_of):
+        r = subprocess.run(worker, cwd=os.path.abspath(root), capture_output=True, text=True)
         lines = [line for line in r.stdout.splitlines() if line.startswith("{")]
         if r.returncode != 0 or not lines:
             print(f"run {i + 1} ({root}) failed, rc {r.returncode}:\n{r.stderr[-3000:]}")
@@ -111,17 +150,21 @@ def main(roots: list[str]) -> int:
         runs.append(json.loads(lines[-1]))
         print(f"run {i + 1} ({root}): {lines[-1]}", flush=True)
     for name in runs[0]["ms"]:
-        print(name, " | ".join(f"{root} {run['ms'][name]:.4f}" for root, run in zip(roots, runs)))
+        print(name, " | ".join(f"{root} {run['ms'][name]:.4f}"
+                               for root, run in zip(runs_of, runs)))
     for name in runs[0]["sha"]:
         print(name, "same result in every run:", len({run["sha"][name] for run in runs}) == 1)
     return 0
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--worker"]:
+    args = sys.argv[1:]
+    ablation = "--ablation" in args
+    args = [a for a in args if a != "--ablation"]
+    if args[:1] == ["--worker"]:
         sys.path.insert(0, os.getcwd())
-        print(json.dumps(_worker()), flush=True)
+        print(json.dumps(_worker(ablation)), flush=True)
     else:
-        if not sys.argv[1:]:
+        if not args:
             sys.exit(__doc__)
-        sys.exit(main(sys.argv[1:]))
+        sys.exit(main(args, ablation))
