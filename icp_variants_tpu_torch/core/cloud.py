@@ -114,6 +114,21 @@ def from_numpy(
     )
 
 
+def mesh_vertex_normals(vertices: np.ndarray, triangles: np.ndarray) -> np.ndarray:
+    """Vertex normals as the normalized sum of incident (area-weighted) face
+    normals, in float64 on the host (the mesh-constructor convention of
+    PointCloud.h:24-37); (V, 3) float32, zero where no face touches."""
+    v = np.asarray(vertices, dtype=np.float64)
+    tri = np.asarray(triangles, dtype=np.int64)
+    face_n = np.cross(v[tri[:, 1]] - v[tri[:, 0]], v[tri[:, 2]] - v[tri[:, 0]])
+    normals = np.zeros_like(v)
+    for k in range(3):
+        np.add.at(normals, tri[:, k], face_n)
+    norms = np.linalg.norm(normals, axis=1, keepdims=True)
+    normals = np.divide(normals, norms, out=np.zeros_like(normals), where=norms > 0)
+    return normals.astype(np.float32)
+
+
 def coarse_stride_mask(
     cloud: Cloud, stride: int, index_offset: int = 0
 ) -> torch.Tensor:

@@ -8,7 +8,9 @@ tool and the profiler's work model read), the JAX
 package's resident-table rule (:func:`resident_fits`), the per-query radius
 search over kd blocks that serves tables past that rule, and the dense and
 tile-pruned matchers behind ``knn.match`` / ``nn_search`` and
-``nn_search_pruned``. :func:`visited_search`, :func:`kd_radius_search`,
+``nn_search_pruned``, and the exact k-NN of the PCA normals
+(:func:`knn_k`, plain PyTorch on every device, as the JAX package's is
+plain XLA). :func:`visited_search`, :func:`kd_radius_search`,
 :func:`dense_nn_search` and :func:`pruned_nn_search` launch the
 hand-written CUDA kernels ``csrc/visited_search.cu``,
 ``csrc/kd_radius_search.cu`` and ``csrc/dense_nn_search.cu`` on CUDA
@@ -580,6 +582,40 @@ def nn_search_xla(
         m, a = torch.min(expanded_d2(q[:, s:s + chunk], qn2[:, s:s + chunk], t, tn2), dim=-1)
         idx.append(a.to(torch.int32))
         d2.append(m)
+    idx, d2 = torch.cat(idx, dim=1), torch.cat(d2, dim=1)
+    return (idx, d2) if batched else (idx[0], d2[0])
+
+
+def k_smallest(d2: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` smallest entries of each row of ``d2`` (..., M), ascending,
+    the lower column first on a tie: k rounds of argmin, each masking its
+    winner (``torch.topk`` promises no tie order). Returns ``(cols (..., k)
+    int64, values (..., k))``; ``d2`` is overwritten."""
+    cols, vals = [], []
+    for _ in range(k):
+        v, a = torch.min(d2, dim=-1, keepdim=True)
+        cols.append(a)
+        vals.append(v)
+        d2.scatter_(-1, a, float("inf"))
+    return torch.cat(cols, dim=-1), torch.cat(vals, dim=-1)
+
+
+def knn_k(
+    queries: torch.Tensor, targets: torch.Tensor, k: int, *, chunk: int = 1024
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact k-NN (small k) by :func:`expanded_d2` over every target row,
+    ``chunk`` query rows at a time (the JAX package's ``knn_k``, a load-time
+    op of the PCA normals): ``(idx (..., N, k) int32, d2 (..., N, k))``,
+    ascending, the lower target row first on a tie. ``queries`` (B, N, D)
+    and ``targets`` (B, M, D), or one unbatched pair."""
+    batched, (q, t) = _batch_args(queries, targets)
+    q, t = q.float(), t.float()
+    qn2, tn2 = norm2(q), norm2(t)
+    idx, d2 = [], []
+    for s in range(0, max(q.shape[1], 1), chunk):
+        c, v = k_smallest(expanded_d2(q[:, s:s + chunk], qn2[:, s:s + chunk], t, tn2), k)
+        idx.append(c.to(torch.int32))
+        d2.append(v)
     idx, d2 = torch.cat(idx, dim=1), torch.cat(d2, dim=1)
     return (idx, d2) if batched else (idx[0], d2[0])
 

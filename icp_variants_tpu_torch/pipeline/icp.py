@@ -9,8 +9,11 @@ the dense colour-multires tracker and the projective RGB-D tracker
               -> solve -> left-multiply pose update -> record error
 
 over an explicit leading pair axis B (the JAX package's ``vmap``), and the
-iterations are a Python loop (its ``lax.scan``). The loop makes no host
-sync: draws come from a ``torch.Generator`` on the device, the per-iteration
+iterations are a Python loop (its ``lax.scan``); with ``anderson_m`` > 0
+each pair's pose is mixed by Anderson acceleration after every iteration.
+The loop makes no host sync (the linear point-to-point solve's
+``torch.linalg.svd`` aside, which checks its result on the host): draws
+come from a ``torch.Generator`` on the device, the per-iteration
 trace is written into preallocated device tensors, and the matcher's
 fallback runs unconditionally with frozen rows, so the host queues the
 whole run and only the caller's read of the result waits for the device.
@@ -44,7 +47,7 @@ from icp_variants_tpu_torch.pipeline.config import (
     Selection,
     Weighting,
 )
-from icp_variants_tpu_torch.solvers import gauss_newton, linear
+from icp_variants_tpu_torch.solvers import anderson, gauss_newton, linear, procrustes
 
 # Below this size the kd build outweighs the candidate savings.
 KD_MIN_POINTS = 20_000
@@ -85,25 +88,26 @@ class ICPResult(NamedTuple):
 
 def _solve(cfg: ICPConfig, m: weighting.MatchArrays, w: torch.Tensor) -> torch.Tensor:
     """Stages 5+6 (metric + minimizer): the (B, 4, 4) increment applied
-    from the left. Ported: the LM minimizer (point, plane and symmetric
-    metrics) and the linear plane and symmetric metrics."""
+    from the left."""
     if cfg.minimizer == Minimizer.NONLINEAR_LM:
         return gauss_newton.estimate_pose_lm(
             cfg.metric, m.src_points, m.tgt_points, m.src_normals, m.tgt_normals, w, m.valid,
             max_iterations=cfg.lm_max_inner_iterations,
             function_tolerance=cfg.lm_function_tolerance)
+    if cfg.metric == Metric.POINT_TO_POINT:
+        # Robust weights zero out outliers; the reference's unweighted-mean
+        # quirk would feed them into the translation (solvers/procrustes.py).
+        return procrustes.estimate_pose_point_to_point(
+            m.src_points, m.tgt_points, w, m.valid,
+            weighted_means=cfg.weighting in (Weighting.HUBER, Weighting.TUKEY))
     if cfg.metric == Metric.POINT_TO_PLANE:
         return linear.estimate_pose_point_to_plane(
             m.src_points, m.tgt_points, m.tgt_normals, w, m.valid)
-    if cfg.metric == Metric.SYMMETRIC:
-        return linear.estimate_pose_symmetric(
+    if cfg.metric == Metric.GICP:
+        return linear.estimate_pose_gicp(
             m.src_points, m.tgt_points, m.src_normals, m.tgt_normals, w, m.valid)
-    if cfg.metric == Metric.POINT_TO_POINT:
-        raise NotImplementedError(
-            "linear point-to-point (solvers/procrustes.py) is not ported yet: "
-            "ROADMAP.md queue 1 item 1")
-    raise NotImplementedError(
-        "the linear GICP metric is not ported yet: ROADMAP.md queue 1 item 1")
+    return linear.estimate_pose_symmetric(
+        m.src_points, m.tgt_points, m.src_normals, m.tgt_normals, w, m.valid)
 
 
 def _compact_capacity(n: int, proba: float) -> int:
@@ -458,10 +462,6 @@ def run_icp_batch(
     ``benchmark`` and ``num_matches``, and the results are no registration."""
     if stop_after is not None and stop_after not in PROBE_STAGES:
         raise ValueError(f"stop_after must be None or one of {PROBE_STAGES}, got {stop_after!r}")
-    if cfg.anderson_m > 0:
-        raise NotImplementedError(
-            "Anderson acceleration (solvers/anderson.py) is not ported yet: "
-            "ROADMAP.md queue 1 item 1")
     if cfg.matching == Matching.PROJECTIVE and (
             targets.capacity != cfg.projective_width * cfg.projective_height):
         raise ValueError(
@@ -526,12 +526,23 @@ def run_icp_batch(
     rmse = torch.empty((b, n_iter), dtype=torch.float32, device=dev)
     bench = torch.empty_like(rmse)
     num_matches = torch.empty((b, n_iter), dtype=torch.int32, device=dev)
+    # Anderson acceleration: a fresh mixing state per call (so per level of
+    # the segmented driver), one per pair; anderson_m == 0 keeps the plain
+    # fixed-point iteration.
+    aa = anderson.init_like(cfg.anderson_m, pose) if cfg.anderson_m > 0 else None
     for t, stride in enumerate(strides):
-        pose, rmse[:, t], bench[:, t], num_matches[:, t], cache = _iteration(
+        new_pose, rmse[:, t], bench[:, t], num_matches[:, t], cache = _iteration(
             cfg, sources, targets, pose, stride, generator, selected, t,
             gt_src, gt_tgt, gtv, run_benchmark, target_index, kd_indexes,
             src_table, tgt_table, cache, seeded, feats, stop_after=stop_after,
         )
+        if aa is not None:
+            # The trace holds the plain step's pose (the fixed-point
+            # evaluation); the carried pose is the mixed one.
+            aa, x_next = anderson.step(aa, anderson.pose_to_vec(pose),
+                                       anderson.pose_to_vec(new_pose), cfg.anderson_m)
+            new_pose = anderson.vec_to_pose(x_next)
+        pose = new_pose
     return ICPResult(pose=pose, trace=ICPTrace(rmse=rmse, benchmark=bench, num_matches=num_matches),
                      match_blocks=cache if emit_blocks else None)
 

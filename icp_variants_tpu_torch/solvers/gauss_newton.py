@@ -22,8 +22,10 @@ Residual blocks mirror prepareConstraints*:
 * SYMMETRIC:      the point rows plus 1 symmetric row, lambda 1.0, the
                   target rotated by the inverse increment rotation
                                                     (constraints.h:95-143)
+* GICP:           3 whitened rows per match, ``L^T (moved - tgt)``, with the
+                  whitener ``linear.gicp_whitener`` fixed for the ICP
+                  iteration (standard GICP IRLS; an extension)
 Every row is scaled by the match weight; invalid rows are masked to zero.
-GICP through LM needs ``linear.gicp_whitener``, not ported yet.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from icp_variants_tpu_torch.core import se3
 from icp_variants_tpu_torch.pipeline.config import Metric
+from icp_variants_tpu_torch.solvers import linear
 
 LAMBDA_POINT = 0.1      # constraints.h:46
 LAMBDA_PLANE = 1.0      # constraints.h:91
@@ -41,8 +44,7 @@ LAMBDA_SYMMETRIC = 1.0  # constraints.h:142
 
 
 class _Residuals(NamedTuple):
-    """One pair's fixed data of the residual stack (the JAX package's
-    fields but the GICP whiteners)."""
+    """One pair's fixed data of the residual stack."""
 
     src: torch.Tensor          # (N, 3)
     tgt: torch.Tensor          # (N, 3)
@@ -50,18 +52,20 @@ class _Residuals(NamedTuple):
     tgt_normals: torch.Tensor  # (N, 3) zeros where not finite
     w_point: torch.Tensor      # (N,) weight incl. mask, point rows
     w_metric: torch.Tensor     # (N,) weight incl. mask and finite-normal mask
+    gicp_l: torch.Tensor       # (N, 3, 3) GICP whiteners; (0, 3, 3) for other metrics
 
 
 def _residual_fn(metric: Metric):
     """The residual stack ``r(x, data)`` (M,) of one pair for ``metric``."""
-    if metric == Metric.GICP:
-        raise NotImplementedError(
-            "GICP through LM needs linear.gicp_whitener, not ported yet: "
-            "ROADMAP.md queue 1 item 1")
 
     def residuals(x: torch.Tensor, d: _Residuals) -> torch.Tensor:
         moved = se3.apply_increment(x, d.src)
         diff = moved - d.tgt
+        if metric == Metric.GICP:
+            # The pure Mahalanobis objective: no extra point rows (the
+            # isotropic floor lives in the whitener's epsilon).
+            white = (d.gicp_l.transpose(-1, -2) @ diff[..., None])[..., 0]
+            return (d.w_metric[:, None] * white).reshape(-1)
         parts = [((LAMBDA_POINT * d.w_point)[:, None] * diff).reshape(-1)]
         if metric == Metric.POINT_TO_PLANE:
             parts.append(LAMBDA_PLANE * d.w_metric * torch.sum(d.tgt_normals * diff, dim=-1))
@@ -107,8 +111,13 @@ def solve_lm(
     finite_tn = torch.isfinite(tgt_normals).all(dim=-1)
     if metric == Metric.SYMMETRIC:
         finite_metric = (finite_sn & finite_tn).to(src.dtype)
+    elif metric == Metric.GICP:
+        # Non-finite normals already become isotropic in the whitener.
+        finite_metric = torch.ones_like(mask)
     else:
         finite_metric = finite_tn.to(src.dtype)
+    gicp_l = (linear.gicp_whitener(src_normals, tgt_normals) if metric == Metric.GICP
+              else src.new_zeros((src.shape[0], 0, 3, 3)))
     data = _Residuals(
         src=src,
         tgt=tgt,
@@ -116,6 +125,7 @@ def solve_lm(
         tgt_normals=torch.where(finite_tn[..., None], tgt_normals, 0.0),
         w_point=weights * mask,
         w_metric=weights * mask * finite_metric,
+        gicp_l=gicp_l,
     )
     residuals = torch.func.vmap(res_fn)
     jacobian = torch.func.vmap(torch.func.jacfwd(res_fn))

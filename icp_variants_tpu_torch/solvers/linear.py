@@ -1,4 +1,4 @@
-"""Linear (small-angle) point-to-plane and symmetric-ICP solvers.
+"""Linear (small-angle) point-to-plane, symmetric-ICP and GICP solvers.
 
 PyTorch port of ``icp_variants_tpu.solvers.linear``
 (``LinearICPOptimizer``, ICPOptimizer.h:676-898). The 6x6 normal
@@ -12,6 +12,11 @@ Row layouts per match (weights fold in mask * per-match weight):
 * point rows (lambda=0.1):  small-angle  Ms + t - d            (ICPOptimizer.h:717-733)
 * symmetric row (lambda=1.0): [(s~+d~) x (ns+nt) ; ns+nt] . x = (d~-s~).(ns+nt)
                                                                (ICPOptimizer.h:809-815)
+* GICP rows: the three point rows premultiplied by the whitener L^T
+  (Segal et al., RSS 2009; an extension with no reference analog).
+
+The GICP whiteners are closed-form 3x3 inverses and Cholesky factors,
+elementwise over the matches: no cuSOLVER call, so no host sync.
 """
 
 from __future__ import annotations
@@ -24,6 +29,30 @@ LAMBDA_POINT = 0.1       # ICPOptimizer.h:737
 LAMBDA_PLANE = 1.0       # ICPOptimizer.h:738
 LAMBDA_SYMMETRIC = 1.0   # ICPOptimizer.h:840
 TIKHONOV_SYMMETRIC = 1e-4  # ICPOptimizer.h:863
+GICP_EPSILON = 1e-3      # Segal et al., plane-disk covariance floor
+
+
+def _point_rows(s: torch.Tensor) -> torch.Tensor:
+    """The three small-angle point-to-point rows per match, (..., N, 3, 6):
+    row k solves coordinate k of ``Ms + t = d`` with
+    M = [[1, -g, b], [g, 1, -a], [-b, a, 1]] (ICPOptimizer.h:717-733)."""
+    zeros, ones = torch.zeros_like(s[..., 0]), torch.ones_like(s[..., 0])
+    r0 = torch.stack([zeros, s[..., 2], -s[..., 1], ones, zeros, zeros], dim=-1)
+    r1 = torch.stack([-s[..., 2], zeros, s[..., 0], zeros, ones, zeros], dim=-1)
+    r2 = torch.stack([s[..., 1], -s[..., 0], zeros, zeros, zeros, ones], dim=-1)
+    return torch.stack([r0, r1, r2], dim=-2)
+
+
+def _accumulate_normal_equations(
+    rows: torch.Tensor,   # (..., N, R, 6)
+    rhs: torch.Tensor,    # (..., N, R)
+    row_w: torch.Tensor,  # (..., N, R) mask-and-lambda weights
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``A^T A`` and ``A^T b`` of the weighted rows (each residual weighted
+    by ``row_w^2``) as one batched product over the N * R rows."""
+    wr = (rows * row_w[..., None]).flatten(-3, -2)
+    wb = (rhs * row_w).flatten(-2, -1)
+    return wr.transpose(-1, -2) @ wr, (wr.transpose(-1, -2) @ wb[..., None])[..., 0]
 
 
 def _point_row_specs(s: torch.Tensor, d: torch.Tensor, w):
@@ -152,4 +181,76 @@ def estimate_pose_symmetric(
     return (
         se3.translation_matrix(mean_tgt) @ rod @ se3.translation_matrix(t) @ rod
         @ se3.translation_matrix(-mean_src)
+    )
+
+
+def _cholesky3(m: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of symmetric positive-definite (..., 3, 3)
+    matrices, entry by entry (NaN where not positive definite, as LAPACK's
+    factor is)."""
+    l00 = torch.sqrt(m[..., 0, 0])
+    l10 = m[..., 1, 0] / l00
+    l20 = m[..., 2, 0] / l00
+    l11 = torch.sqrt(m[..., 1, 1] - l10 * l10)
+    l21 = (m[..., 2, 1] - l20 * l10) / l11
+    l22 = torch.sqrt(m[..., 2, 2] - l20 * l20 - l21 * l21)
+    zero = torch.zeros_like(l00)
+    return torch.stack([
+        torch.stack([l00, zero, zero], dim=-1),
+        torch.stack([l10, l11, zero], dim=-1),
+        torch.stack([l20, l21, l22], dim=-1),
+    ], dim=-2)
+
+
+def gicp_whitener(
+    src_normals: torch.Tensor,  # (..., N, 3) transformed source normals
+    tgt_normals: torch.Tensor,  # (..., N, 3)
+    eps: float = GICP_EPSILON,
+) -> torch.Tensor:
+    """Per-match GICP whitening matrices L, (..., N, 3, 3) lower-triangular.
+
+    Each point is a plane-aligned Gaussian with covariance
+    ``C = I - (1 - eps) n n^T``; the source normals are the transformed
+    ones, so ``C_s' = R C_s R^T`` directly. L is the Cholesky factor of
+    ``M = (C_t + C_s')^{-1}``, so the whitened residual ``L^T d`` turns the
+    Mahalanobis objective into least squares. Non-finite normals become
+    zero: an isotropic covariance, point-to-point for that match."""
+    ns = torch.where(torch.isfinite(src_normals), src_normals, 0.0)
+    nt = torch.where(torch.isfinite(tgt_normals), tgt_normals, 0.0)
+    eye = torch.eye(3, dtype=src_normals.dtype, device=src_normals.device)
+    c = (2.0 * eye
+         - (1.0 - eps) * (ns[..., :, None] * ns[..., None, :])
+         - (1.0 - eps) * (nt[..., :, None] * nt[..., None, :]))
+    m = se3._inv3(c)
+    m = 0.5 * (m + m.transpose(-1, -2))  # symmetrize against the inverse's rounding
+    return _cholesky3(m)
+
+
+def estimate_pose_gicp(
+    src: torch.Tensor,          # (..., N, 3) matched transformed source points
+    tgt: torch.Tensor,          # (..., N, 3) matched target points
+    src_normals: torch.Tensor,  # (..., N, 3) transformed source normals
+    tgt_normals: torch.Tensor,  # (..., N, 3)
+    weights: torch.Tensor,      # (..., N)
+    valid: torch.Tensor,        # (..., N) bool
+) -> torch.Tensor:
+    """Linearized Generalized-ICP solve; returns the (..., 4, 4) increment.
+
+    One Gauss-Newton step on the whitened small-angle system: each match's
+    three point rows of ``Ms + t = d`` premultiplied by ``L^T``, centred at
+    the matched-target mean (an exact reparametrization), Euler-angle pose
+    recovery as the point-to-plane solve."""
+    w = weights * valid.to(src.dtype)
+    center = se3.masked_mean(tgt, valid)
+    s = src - center[..., None, :]
+    d = tgt - center[..., None, :]
+    Lt = gicp_whitener(src_normals, tgt_normals).transpose(-1, -2)
+    rows = Lt @ _point_rows(s)                                   # (..., N, 3, 6)
+    rhs = (Lt @ (d - s)[..., None])[..., 0]                      # (..., N, 3)
+    ata, atb = _accumulate_normal_equations(rows, rhs, w[..., None].expand_as(rhs))
+    x = _solve6(ata + 1e-12 * _eye6(ata), atb)
+    R = se3.euler_xyz_to_matrix(x[..., 0], x[..., 1], x[..., 2])
+    pose_centered = se3.pose_matrix(R, x[..., 3:6])
+    return (
+        se3.translation_matrix(center) @ pose_centered @ se3.translation_matrix(-center)
     )

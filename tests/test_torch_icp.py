@@ -257,16 +257,31 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(data, monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    dict(metric=tconfig.Metric.POINT_TO_POINT),
-    dict(metric=tconfig.Metric.GICP),
-    dict(metric=tconfig.Metric.GICP, minimizer=tconfig.Minimizer.NONLINEAR_LM),
+    dict(metric="POINT_TO_POINT"),
+    dict(metric="GICP"),
+    dict(metric="GICP", minimizer="NONLINEAR_LM"),
     dict(anderson_m=3),
 ], ids=["point_to_point-linear", "gicp-linear", "gicp-lm", "anderson"])
 def test_unported_options_raise(data, change):
-    """Options the port does not run yet raise and name their ROADMAP.md
-    item. Anderson acceleration used to be ignored silently: the JAX
-    driver mixes the pose whenever anderson_m > 0."""
-    _, tcfg = _cfgs(16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ticp.run_icp_batch(tcfg.replace(n_iterations=1, **change), data["ts"], data["tt"],
-                           kd_indexes=data["tkds"], device="cpu")
+    """The options that raised NotImplementedError until their solvers were
+    ported (the test keeps its name): linear point-to-point (Procrustes),
+    linear GICP, GICP through LM and Anderson acceleration, each run end to
+    end on the approximate arm against the JAX package with its draws and
+    kd indexes. Tolerances as run_icp_batch's above."""
+    def apply(cfg, config):
+        return cfg.replace(**{k: getattr(getattr(config, k.capitalize()), v)
+                              if isinstance(v, str) else v for k, v in change.items()})
+
+    jcfg, tcfg = _cfgs(16)
+    jcfg, tcfg = apply(jcfg, jconfig), apply(tcfg, tconfig)
+    jr = jicp.run_icp_batch(jcfg, data["js"], data["jt"], key=data["key"],
+                            kd_indexes=data["jkds"],
+                            gt_source_points=data["gts"], gt_target_points=data["gtt"])
+    tr = ticp.run_icp_batch(tcfg, data["ts"], data["tt"], kd_indexes=data["tkds"],
+                            selected=(torch.from_numpy(data["sel"]), torch.from_numpy(data["inr"])),
+                            gt_source_points=data["gts"], gt_target_points=data["gtt"],
+                            device="cpu")
+    np.testing.assert_array_equal(tr.trace.num_matches.numpy(), np.asarray(jr.trace.num_matches))
+    np.testing.assert_allclose(tr.trace.rmse.numpy(), np.asarray(jr.trace.rmse),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(tr.pose.numpy(), np.asarray(jr.pose), atol=1e-4)

@@ -151,6 +151,17 @@ def test_lm_rejected_steps_match_jax():
 
 
 def test_lm_gicp_is_not_ported():
-    src, tgt, ns, nt, w, valid = _matches(6, b=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tgn.solve_lm(TMetric.GICP, *(_t(x) for x in (src, tgt, ns, nt, w, valid)))
+    """GICP through LM, which raised NotImplementedError until
+    ``linear.gicp_whitener`` was ported (the test keeps its name): three
+    pairs batched against JAX pair by pair, at the tolerances above."""
+    src, tgt, ns, nt, w, valid = _matches(6)
+    tr = tgn.solve_lm(TMetric.GICP, *(_t(x) for x in (src, tgt, ns, nt, w, valid)))
+    tpose = tgn.estimate_pose_lm(TMetric.GICP, *(_t(x) for x in (src, tgt, ns, nt, w, valid)))
+    for i in range(len(src)):
+        args = (src[i], tgt[i], ns[i], nt[i], w[i], valid[i])
+        jr = jgn.solve_lm(JMetric.GICP, *args)
+        np.testing.assert_allclose(tr.increment[i].numpy(), np.asarray(jr.increment), atol=1e-6)
+        np.testing.assert_allclose(tr.cost[i].numpy(), np.asarray(jr.cost), rtol=1e-5)
+        np.testing.assert_allclose(
+            tpose[i].numpy(), np.asarray(jgn.estimate_pose_lm(JMetric.GICP, *args)), atol=1e-6)
+    assert (tr.n_accepted >= 1).all()
