@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py            # the full run, ten to fifteen minutes
+    python3 chip_smoke.py            # the full run, fifteen to nineteen minutes
 
 Phases, in order; any failure exits nonzero:
 
@@ -79,7 +79,13 @@ Phases, in order; any failure exits nonzero:
    ``run_icp_batch`` (``build_kd_for`` gives None past the rule): the warm
    matcher's route through box_topk + kd_radius_search. One warm-up run,
    one cold run (``kd_warm_start=False``) that the warm runs must equal
-   (match counts per iteration, poses within rtol 1e-4 / atol 1e-5), 5
+   (match counts per iteration, poses within rtol 1e-4 / atol 1e-5) up to
+   exact ties: the warm-up and the cold run with each iteration's matches
+   and counted rows recorded, equal bit for bit until the first iteration
+   where some row's matches differ, every such row there an exact f32
+   tie, and every row counted differently after it within the runs'
+   measured rounding of a tie, the distance bound or the angle threshold
+   (``warm_cold_parting``); 3
    timed warm runs (median pairs/s) and a profiled one; box_topk (512
    blocks, k = 4) against its plain version on every row at the first
    iteration's radii, and timed there; kd_radius_search
@@ -114,8 +120,8 @@ Phases, in order; any failure exits nonzero:
 8. Tooling: the measurement tools at full width. The fused stage profiler
    (``profiling.fused_report``: the driver's ``stop_after`` probes, stage
    differencing on the host's clock and on the card's kernel time, the
-   work model) on ETH pair 0 under the headline configuration, both arms,
-   3 repetitions; its report printed, the host stage sum held to at most
+   work model) on ETH pair 0 under the headline configuration at 10
+   iterations, both arms, 3 repetitions; its report printed, the host stage sum held to at most
    1.5 x the full run + 0.05 s and the matching stage's kernel time
    above 0. TPU kernel 8, the visited-list ablation
    (``scripts.knn_ablate``, kernel ``visited_ablate``) on the JAX
@@ -161,8 +167,34 @@ Phases, in order; any failure exits nonzero:
    for point-to-point, which slides along the sheets), and the f32 solve
    of one more iteration at the final pose against a float64 numpy solve
    of the same matches.
-10. The record: launches of each kernel on the main paths (the ETH, colour,
-   projective, dense and register arms, the profile path); fails unless each ran
+10. Entry points from files: the port's CLI (``__main__.main``, in-process)
+   on files written under a temporary directory. ``eth <csv> --batch 16
+   --max-pairs 16 --metric 2 --linear --selection 1`` (the headline
+   configuration, with ``--refine``, under the profiler's device
+   activity) over 17 scans of one 365,000-point scene, pre-aligned as in
+   ``plain_global.csv`` (15 binary and 2 ASCII PCD files; row k registers
+   scan k+1 onto scan k, its pose ``eth_true_pose(k)``): the sweep's wall
+   and pairs/s end to end, the host seconds of the parse, normals, kd
+   builds and perturbation and how much of them the prefetch hid, the busy
+   share, launches, each pair's benchmark error, odometry and refined ATE;
+   gates: every final error below its initial one, the final poses and
+   benchmark curves equal bit for bit to a direct ``run_icp_batch`` on the
+   same clouds and kd indexes (read sequentially on the main thread) with
+   the same generator seed, every kd index built by the port's
+   ``libicpio.so`` partition. ``--batch 4 --max-pairs 8
+   --checkpoint-dir``, twice: the second run resumes all and registers
+   nothing; the first's batch 1 normals (the prefetch worker's stream)
+   overlap batch 0's run on the card. ``room`` on 11 TUM frames of
+   ``synth_depth_frame`` written as PNGs, k-NN and ``--projective`` (8
+   frames tracked each) and ``--projective --artifacts-dir`` (2 frames and
+   their meshes): every final RMSE below the initial. The pose graph of
+   the ``--refine`` run's edges, with one edge drifted and two loop
+   closures, refined on the card against a float64 Gauss-Newton
+   (``pose_graph_check``). ``experiments assets/experiment.csv``
+   (3 bunny rows, 1 room row) and ``bunny --artifacts-dir``: the error
+   files and artifacts read back.
+11. The record: launches of each kernel on the main paths (the ETH, colour,
+   projective, dense, register and entry-point runs, the profile path); fails unless each ran
    where its path needs it (pruned_nn_search and the pose mode, on no
    pipeline path, count phase 7's direct calls, and the ablation kernel and
    the block search's probe phase 8's checked calls, read from the
@@ -196,8 +228,9 @@ MAX_DISTANCE = 10.0
 BATCH_PAIRS = 16
 CHECKS_APPROX = 16
 # Timed main-path runs per arm: the host clock of a one-card machine that
-# shares its host's cores varies run to run; the median is reported.
-N_TIMED_RUNS = 5
+# shares its host's cores varies run to run; the median is reported. Three
+# keep the script within its time limit.
+N_TIMED_RUNS = 3
 # Peak rates of one H100 SXM (NVIDIA data sheet): f32 outside the tensor
 # cores, and HBM bandwidth. Every f32 operation counts as one here.
 PEAK_F32_OPS = 67e12
@@ -314,10 +347,13 @@ DENSE_PACKED_POINTS = 600_000
 DENSE_T_ERR_LIMIT_M = 0.025
 DENSE_R_ERR_LIMIT_DEG = 0.05
 
-# Phase 8: repetitions of each fused-profile run (after one warm-up), the
-# JAX ablation script's query slots and stratified draws, and the launches
-# each ablation mode and probe is timed over (median).
+# Phase 8: repetitions of each fused-profile run (after one warm-up) and the
+# iterations of each of its runs (its report is per iteration; 10, not the
+# main path's 50, keep the script within its limit), the JAX ablation
+# script's query slots and stratified draws, and the launches each ablation
+# mode and probe is timed over (median).
 FUSED_REPS = 3
+FUSED_ITERATIONS = 10
 ABLATE_SLOTS = 4736
 ABLATE_DRAWS = 3651
 ABLATE_REPS = 20
@@ -757,6 +793,7 @@ def main() -> int:
     from icp_variants_tpu_torch.ops import _cuda
 
     # ---- phase 1: set-up -------------------------------------------------
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("phase 1: set-up", flush=True)
@@ -780,20 +817,32 @@ def main() -> int:
         for line in log.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
-    rows_eth, launches_eth, eth = eth_phase()
-    rows_color, launches_color, colour = color_phase()
-    rows_proj, launches_proj = projective_phase()
-    rows_dense, launches_dense = dense_phase()
-    rows_match, launches_match = matcher_phase(colour)
+    phase_s = {"1 set-up": time.perf_counter() - t_start}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        print(f"  {name}: {phase_s[name]:.1f} s", flush=True)
+        return out
+
+    rows_eth, launches_eth, eth = timed("2-3 ETH", eth_phase)
+    rows_color, launches_color, colour = timed("4 colour", color_phase)
+    rows_proj, launches_proj = timed("5 projective", projective_phase)
+    rows_dense, launches_dense = timed("6 dense", dense_phase)
+    rows_match, launches_match = timed("7 matchers", matcher_phase, colour)
     del colour
-    rows_tool = tooling_phase(eth)
-    launches_register = register_phase(eth, card)
+    rows_tool = timed("8 tooling", tooling_phase, eth)
+    launches_register = timed("9 register", register_phase, eth, card)
     del eth
+    launches_entry = timed("10 entry points", entry_phase, card)
+    print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}),
+          flush=True)
     record(rows_eth, launches_eth,
            {**rows_color, **rows_proj, **rows_dense, **rows_match, **rows_tool},
            collections.Counter(launches_color) + collections.Counter(launches_proj)
            + collections.Counter(launches_dense) + collections.Counter(launches_match)
-           + launches_register)
+           + launches_register + launches_entry)
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1961,6 +2010,173 @@ def dense_queries(sources, pose):
     return torch.where(sources.valid[..., None], pts, knn.take_rows(pts, first[:, None])).contiguous()
 
 
+def stage_records(fn):
+    """``fn()`` (one ``run_icp_batch``) with each iteration's matching stage
+    (queries, idx, d2, valid) and normal-angle test (source normals, the
+    validity it leaves) recorded; returns ``(fn(), records)``, one dict an
+    iteration."""
+    from icp_variants_tpu_torch.ops import rejection
+    from icp_variants_tpu_torch.pipeline import icp
+
+    with Spy(icp, "_match_kd_stage",
+             keep=lambda a, kw, out: dict(q=a[1], idx=out[0], d2=out[1], kv=out[2])) as m, \
+            Spy(rejection, "normal_angle_mask",
+                keep=lambda a, kw, out: dict(n_src=a[0], fin=out)) as r:
+        out = fn()
+    check(len(m.calls) == len(r.calls) == N_ITERATIONS,
+          f"dense: {N_ITERATIONS} matching stages and normal-angle tests recorded in a run")
+    return out, [{**x, **y} for x, y in zip(m.calls, r.calls)]
+
+
+def warm_cold_parting(rec_w, rec_c, kd, targets) -> dict:
+    """The gate that holds the dense warm run to the cold one, iteration by
+    iteration and row by row (records of :func:`stage_records`).
+
+    Per pair, the runs' matches (which rows match, and the idx and d2 of
+    each) and the rows they count are equal bit for bit up to the first
+    iteration where some row's matches differ. There the queries are still
+    equal, and every row whose matches differ is an exact f32 tie: both
+    runs match it at one d2, to two target points, each at that d2 from the
+    query in the JAX package's order of operations, the warm one at the
+    lower page index. (The cold search, ``kd_block_search``, takes a tie in
+    its earliest ``box_topk`` pick; the warm search past the resident rule,
+    ``kd_radius_search``, at the lowest page index. The JAX package's warm
+    and cold matchers part on exact ties as well, by their kernels' own
+    rules: ``tests/test_torch_warm.py``,
+    ``test_warm_and_cold_part_only_on_exact_ties``.) Only those rows may count
+    differently there. The other normal moves the solve by rounding, and
+    after it every row the runs count differently is one the measured
+    rounding explains: matched to two points at d2s within what the query
+    shift allows (a near-tie); or matched in one run only, within that of
+    the distance bound; or matched alike, its two cosines on both sides of
+    the normal-angle threshold within what the source normals' shift
+    allows. The validity model behind this (kd-stage validity, the target
+    row's validity, the angle test, computed as the pipeline does) must
+    reproduce both runs' counted rows at every iteration. Raises
+    :class:`Failure` on a failed check; returns what it read."""
+    import torch
+
+    from icp_variants_tpu_torch.ops import knn, rejection
+    from icp_variants_tpu_torch.pipeline import icp
+
+    eps = float(np.finfo(np.float32).eps)
+    cos_th = math.cos(rejection.ANGLE_THRESHOLD_RAD)
+    table = icp._fuse_cloud_table(targets)
+    b = table.shape[0]
+
+    def differs(w, c):
+        return (w["kv"] != c["kv"]) | (w["kv"] & c["kv"] & (
+            (w["idx"] != c["idx"]) | (w["d2"] != c["d2"])))
+
+    def d2_direct(q, p):
+        diff = q - p
+        return diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] \
+            + diff[..., 2] * diff[..., 2]
+
+    def counted(rec):
+        """The rows a run counts, as the pipeline decides them: matched, a
+        valid target row, not rejected by the angle test."""
+        rows = knn.take_rows(table, torch.clamp(rec["idx"], 0, table.shape[-2] - 1))
+        nt, ns = rows[..., 3:6], rec["n_src"]
+        cos = torch.sum(ns * nt, dim=-1) / (torch.linalg.norm(ns, dim=-1)
+                                            * torch.linalg.norm(nt, dim=-1))
+        reject = (cos < cos_th) & ~torch.isnan(cos)
+        return rec["kv"] & (rows[..., 6] > 0.5) & ~reject, cos, reject
+
+    first = [N_ITERATIONS] * b
+    for t in reversed(range(N_ITERATIONS)):
+        d = differs(rec_w[t], rec_c[t]).any(-1).tolist()
+        first = [t if x else f for x, f in zip(d, first)]
+    ties = [[] for _ in range(b)]
+    kinds = [collections.Counter() for _ in range(b)]
+    gaps = [{} for _ in range(b)]
+    model_ok, before_ok, after_bad = True, [True] * b, [[] for _ in range(b)]
+    for t in range(N_ITERATIONS):
+        w, c = rec_w[t], rec_c[t]
+        (fw, cw, rw), (fc, cc, rc) = counted(w), counted(c)
+        model_ok &= torch.equal(fw, w["fin"]) and torch.equal(fc, c["fin"])
+        flip = fw != fc
+        for i in range(b):
+            gap = int(fw[i].sum()) - int(fc[i].sum())
+            if gap:
+                gaps[i][t] = gap
+            if t < first[i]:
+                before_ok[i] &= not bool(flip[i].any())
+                continue
+            if t == first[i]:
+                rows = torch.nonzero(differs(w, c)[i]).flatten()
+                q = w["q"][i, rows]
+                iw, ic = w["idx"][i, rows].long(), c["idx"][i, rows].long()
+                pages = kd.page_orig[i].long()
+                pw = [int(torch.nonzero(pages == j)[0]) for j in iw.tolist()]
+                pc = [int(torch.nonzero(pages == j)[0]) for j in ic.tolist()]
+                d2 = w["d2"][i, rows]
+                check(torch.equal(w["q"][i], c["q"][i])
+                      and bool((w["kv"][i, rows] & c["kv"][i, rows]).all())
+                      and bool((iw != ic).all()) and torch.equal(d2, c["d2"][i, rows])
+                      and torch.equal(d2_direct(q, targets.points[i, iw]), d2)
+                      and torch.equal(d2_direct(q, targets.points[i, ic]), d2)
+                      and all(a < z for a, z in zip(pw, pc)),
+                      f"dense pair {i}: the runs part at iteration {t} on {len(rows)} exact f32 "
+                      "tie(s): the queries equal; each row matched in both runs at one d2, to "
+                      "two target points at that d2, the warm one at the lower page index")
+                tied = torch.zeros_like(flip[i])
+                tied[rows] = True
+                check(not bool((flip[i] & ~tied).any()),
+                      f"dense pair {i} iteration {t}: only the tied rows count differently")
+                kinds[i]["tie"] += int(flip[i].sum())
+                ties[i] = [dict(iteration=t, row=r, d2=x, warm=[a, p1], cold=[z, p2])
+                           for r, x, a, z, p1, p2 in zip(rows.tolist(), d2.tolist(),
+                                                         iw.tolist(), ic.tolist(), pw, pc)]
+                continue
+            r = torch.nonzero(flip[i]).flatten()
+            if not len(r):
+                continue
+            dq = torch.linalg.norm(w["q"][i, r].double() - c["q"][i, r].double(), dim=-1)
+            dn = torch.linalg.norm(w["n_src"][i, r].double() - c["n_src"][i, r].double(), dim=-1)
+            d2w, d2c = w["d2"][i, r].double(), c["d2"][i, r].double()
+            kvw, kvc = w["kv"][i, r], c["kv"][i, r]
+            same = w["idx"][i, r] == c["idx"][i, r]
+            dmax = torch.maximum(d2w, d2c).clamp(min=0)
+            tol_d2 = (2 * dmax.sqrt() + dq) * dq + 8 * eps * dmax
+            near_tie = ~same & kvw & kvc & ((d2w - d2c).abs() <= tol_d2)
+            at_bound = (kvw != kvc) & (MAX_DISTANCE - torch.where(kvw, d2w, d2c) <= tol_d2)
+            cw_r, cc_r = cw[i, r].double(), cc[i, r].double()
+            at_angle = (same & kvw & kvc & (rw[i, r] != rc[i, r])
+                        & ((cw_r - cc_r).abs() <= 2 * dn + 8 * eps))
+            bad = torch.nonzero(~(near_tie | at_bound | at_angle)).flatten().tolist()
+            for j in bad[:4]:
+                print(f"    pair {i} iteration {t} row {int(r[j])}: warm idx "
+                      f"{int(w['idx'][i, r[j]])} d2 {float(d2w[j])!r} cos {float(cw_r[j])!r}; "
+                      f"cold idx {int(c['idx'][i, r[j]])} d2 {float(d2c[j])!r} cos "
+                      f"{float(cc_r[j])!r}; query shift {float(dq[j]):.3e}, source normal "
+                      f"shift {float(dn[j]):.3e}", flush=True)
+            after_bad[i] += [(t, int(r[j])) for j in bad]
+            kinds[i]["near tie"] += int(near_tie.sum())
+            kinds[i]["distance bound"] += int((at_bound & ~near_tie).sum())
+            kinds[i]["angle threshold"] += int((at_angle & ~near_tie & ~at_bound).sum())
+    check(model_ok, f"dense: the validity model reproduces both runs' counted rows in all "
+                    f"{N_ITERATIONS} iterations")
+    kinds = [{k: v for k, v in x.items() if v} for x in kinds]
+    for i in range(b):
+        check(before_ok[i], f"dense pair {i}: warm == cold, the matches and the counted rows "
+                            f"equal bit for bit in iterations 0-{first[i] - 1}")
+        check(not after_bad[i],
+              f"dense pair {i}: each row counted differently after the runs part lies within "
+              f"the runs' rounding of a tie, the distance bound or the angle threshold "
+              f"(unexplained (iteration, row): {after_bad[i][:8]})")
+        print(f"  dense pair {i}: warm and cold "
+              + ("equal bit for bit in every iteration" if first[i] == N_ITERATIONS else
+                 f"equal bit for bit until iteration {first[i]}, where they part on "
+                 f"{len(ties[i])} exact tie(s) ("
+                 + "; ".join(f"row {x['row']} at d2 {x['d2']!r}: warm idx {x['warm'][0]} page "
+                             f"{x['warm'][1]}, cold idx {x['cold'][0]} page {x['cold'][1]}"
+                             for x in ties[i])
+                 + f"); after it, rows counted differently by cause {kinds[i]}, count gaps "
+                   f"warm - cold by iteration {gaps[i]}"), flush=True)
+    return dict(parted_at=first, ties=ties, counted_differently=kinds, count_gaps=gaps)
+
+
 def needed_work(kd, q, sel, d2):
     """Bytes and f32 operations a search over each query's picked blocks
     needs on these inputs: the blocks whose box lower bound is <= the
@@ -2092,16 +2308,21 @@ def dense_phase():
     def run(c):
         return icp.run_icp_batch(c, sources, targets, kd_indexes=kd, device=dev)
 
+    # The warm-up and the cold run record each iteration's matching stage
+    # and normal-angle test, which the warm == cold gate below reads.
     t0 = time.perf_counter()
-    run(cfg)
+    warm0, rec_w = stage_records(lambda: run(cfg))
     sync()
     warmup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cold = run(cfg.replace(kd_warm_start=False))
+    cold, rec_c = stage_records(lambda: run(cfg.replace(kd_warm_start=False)))
     sync()
     cold_s = time.perf_counter() - t0
-    print(f"  warm-up run {warmup_s:.2f} s; cold run (kd_warm_start=False) {cold_s:.4f} s",
-          flush=True)
+    print(f"  warm-up run {warmup_s:.2f} s; cold run (kd_warm_start=False) {cold_s:.4f} s "
+          "(both recorded)", flush=True)
+    warm_cold = warm_cold_parting(rec_w, rec_c, kd, targets)
+    del rec_w, rec_c
+    torch.cuda.empty_cache()
     walls, issues, counts, results = timed_runs({"warm": lambda seed: run(cfg)})
     res, launches = results["warm"], counts["warm"]
     dt, issued = float(np.median(walls["warm"])), float(np.median(issues["warm"]))
@@ -2125,8 +2346,6 @@ def dense_phase():
           f"{[round(x * 1e3, 4) for x in t_errs]}), mean r_err {np.mean(r_errs):.6f} deg, "
           f"matches/iter {nm.mean():.1f}, warm-cold pose gap {gap:.3e}, launches {launches}",
           flush=True)
-    check(torch.equal(res.trace.num_matches, cold.trace.num_matches),
-          f"dense: warm == cold, match counts equal in all {N_ITERATIONS} iterations of every pair")
     check(torch.allclose(res.pose, cold.pose, rtol=1e-4, atol=1e-5),
           "dense: warm and cold final poses within rtol 1e-4, atol 1e-5")
     for name in ("box_topk", "kd_radius_search", "visited_search"):
@@ -2134,6 +2353,13 @@ def dense_phase():
               f"dense warm: {name} launched >= {N_ITERATIONS} times in the timed run")
     check(launches.get("kd_block_search", 0) == 0,
           "dense warm: kd_block_search not launched (the route past the rule)")
+
+    check(torch.equal(warm0.pose, res.pose) and torch.equal(warm0.trace.rmse, res.trace.rmse)
+          and torch.equal(warm0.trace.num_matches, res.trace.num_matches),
+          "dense: the recorded warm-up run equals the timed warm run bit for bit (poses, RMSE "
+          "and match counts of every iteration)")
+    arm["warm_cold"] = warm_cold
+    del warm0
 
     # ---- kd_radius_search against its plain version, every row -------------
     bv = knn.bound_value(MAX_DISTANCE)
@@ -2146,6 +2372,7 @@ def dense_phase():
     empty = torch.full((b, int(gran[-1]) + 1), -1, dtype=torch.int32, device=dev)
     _, _, _, cache = icp._match_kd_stage(cfg, qf, kd, fidx, mask, empty, False, feats)
     cached_r = kdtree.warm_radius(qf, cache[:, gran], feats, MAX_DISTANCE, mask)[0]
+
     boxes = (kd.block_min, kd.block_max, kd.pages)
     row = dict(err=0.0)
     for label, q, r in (("first iteration's radii (the bound)", q0, torch.where(mask, bv, -1.0)),
@@ -2858,7 +3085,7 @@ def tooling_phase(eth):
     for arm, checks in (("exact", 0), ("checks16", CHECKS_APPROX)):
         cfg = ICPConfig(metric=Metric.SYMMETRIC, minimizer=Minimizer.LINEAR,
                         selection=Selection.RANDOM, selection_proba=SELECTION_P,
-                        n_iterations=N_ITERATIONS, max_distance=MAX_DISTANCE,
+                        n_iterations=FUSED_ITERATIONS, max_distance=MAX_DISTANCE,
                         matching_checks=checks)
         t0 = time.perf_counter()
         rep = profiling.fused_report(cfg, src0, tgt0, repetitions=FUSED_REPS, kd_index=kd0,
@@ -3386,8 +3613,484 @@ def register_phase(eth, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the entry points from files (the CLI, in-process)
+# ---------------------------------------------------------------------------
+
+ETH_FILE_SCANS = 17          # a chain of 16 pairs
+ETH_ASCII_SCANS = (3, 11)    # written as ASCII (the native scan); the rest binary
+ENTRY_ETH_ARGS = ("--metric", "2", "--linear", "--selection", "1")
+ROOM_FRAMES = 11             # frames 0-10: `room` tracks 1-8, the experiments' room row 10
+ROOM_TRACKED = TUM_BATCH_FRAMES
+# The artifact writer runs on a short `room --projective --artifacts-dir`
+# call of its own: each frame's OFF mesh (~300k vertices, ~36 MB of text)
+# takes ~4 s to write.
+ROOM_TRACKED_ARTIFACTS = 2
+
+
+def write_eth_files(root):
+    """ETH_FILE_SCANS scans of one static scene (``synth_cloud(N_POINTS,
+    0)``) as .pcd files, pre-aligned as ``plain_global.csv``'s scans are,
+    and the pose CSV in that layout (columns 1-2 the reading and reference
+    file names, 4-15 the 3x4 pose): row k registers scan k+1 onto scan k,
+    and its pose is ``eth_true_pose(k)``, which the driver scales by 0.1
+    and applies to the reading. Returns the CSV path and the scene."""
+    import os
+
+    from icp_variants_tpu_torch.data import pcd_io
+
+    data = os.path.join(root, "plain")
+    os.makedirs(data, exist_ok=True)
+    scene, _ = synth_cloud(N_POINTS, 0)
+    for i in range(ETH_FILE_SCANS):
+        pcd_io.write_pcd(os.path.join(data, f"scan{i:02d}.pcd"), scene,
+                         binary=i not in ETH_ASCII_SCANS)
+    rows = [f"{k},scan{k + 1:02d}.pcd,scan{k:02d}.pcd,1.0,"
+            + ",".join(f"{x:.9g}" for x in eth_true_pose(k)[:3, :4].reshape(-1))
+            for k in range(ETH_FILE_SCANS - 1)]
+    csv = os.path.join(root, "plain_global.csv")
+    with open(csv, "w") as f:
+        f.write("id,reading,reference,overlap," + ",".join(f"T{k}" for k in range(12)) + "\n")
+        f.write("\n".join(rows) + "\n")
+    return csv, scene
+
+
+def write_tum_files(root):
+    """ROOM_FRAMES frames of ``synth_depth_frame(i)`` in the TUM layout:
+    ``rgb/`` and ``depth/`` PNGs (16-bit depth at 5000 per metre),
+    ``rgb.txt``, ``depth.txt``, ``groundtruth.txt`` (camera i at x =
+    -TUM_SHIFT i, identity rotation)."""
+    import os
+
+    from PIL import Image
+
+    for sub in ("rgb", "depth"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    lines = {"rgb.txt": [], "depth.txt": [], "groundtruth.txt": []}
+    for i in range(ROOM_FRAMES):
+        depth, color = synth_depth_frame(i)
+        ts = f"{1000.0 + 0.1 * i:.4f}"
+        Image.fromarray(np.round(depth * 5000.0).astype(np.uint16)).save(
+            os.path.join(root, f"depth/{i:03d}.png"))
+        Image.fromarray(np.ascontiguousarray(color[..., :3]), "RGB").save(
+            os.path.join(root, f"rgb/{i:03d}.png"))
+        lines["depth.txt"].append(f"{ts} depth/{i:03d}.png")
+        lines["rgb.txt"].append(f"{ts} rgb/{i:03d}.png")
+        lines["groundtruth.txt"].append(f"{ts} {-TUM_SHIFT * i:.6f} 0 0 0 0 0 1")
+    for name, rows in lines.items():
+        with open(os.path.join(root, name), "w") as f:
+            f.write("# written by chip_smoke.py\n# a\n# b\n" + "\n".join(rows) + "\n")
+
+
+class Spy:
+    """Wrap ``owner.name`` for the duration of a ``with``: record each
+    call's arguments, result and seconds in ``calls``, or only what
+    ``keep(args, kwargs, out)`` returns."""
+
+    def __init__(self, owner, name, keep=None):
+        self.owner, self.name, self.calls, self.keep = owner, name, [], keep
+
+    def __enter__(self):
+        self.orig = getattr(self.owner, self.name)
+
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = self.orig(*args, **kwargs)
+            self.calls.append(
+                dict(args=args, kwargs=kwargs, out=out, seconds=time.perf_counter() - t0)
+                if self.keep is None else self.keep(args, kwargs, out))
+            return out
+
+        setattr(self.owner, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def _so3_exp64(w):
+    th = float(np.linalg.norm(w))
+    K = np.array([[0.0, -w[2], w[1]], [w[2], 0.0, -w[0]], [-w[1], w[0], 0.0]])
+    if th < 1e-12:
+        return np.eye(3) + K
+    return np.eye(3) + np.sin(th) / th * K + (1.0 - np.cos(th)) / th ** 2 * K @ K
+
+
+def _so3_log64(R):
+    th = math.acos(float(np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0)))
+    v = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]]) / 2.0
+    return v if th < 1e-12 else v * th / math.sin(th)
+
+
+def _se3_exp64(xi):
+    """The left increment ``[R(xi[:3]) | xi[3:]]``, float64."""
+    T = np.eye(4)
+    T[:3, :3] = _so3_exp64(xi[:3])
+    T[:3, 3] = xi[3:]
+    return T
+
+
+def _graph_residuals64(poses, edges):
+    """Each edge's ``w [log_SO3(R_e), t_e]`` of ``(T_i A)^-1 T_j``, float64
+    (the pose graph's residual, ``parallel/pose_graph.edge_residuals``)."""
+    out = []
+    for i, j, A, w in edges:
+        E = np.linalg.inv(poses[i] @ A) @ poses[j]
+        out.append(w * np.concatenate([_so3_log64(E[:3, :3]), E[:3, 3]]))
+    return np.concatenate(out)
+
+
+def _refine64(poses, edges, iterations=20):
+    """Plain float64 Gauss-Newton over the same objective, pose 0 held
+    fixed (the gauge), central-difference Jacobians of left increments."""
+    poses = np.array(poses, np.float64)
+    v, h = len(poses), 1e-6
+    for _ in range(iterations):
+        r = _graph_residuals64(poses, edges)
+        J = np.zeros((len(r), 6 * (v - 1)))
+        for k in range(1, v):
+            for m in range(6):
+                e = np.zeros(6)
+                e[m] = h
+                cols = []
+                for sgn in (1.0, -1.0):
+                    p = poses.copy()
+                    p[k] = _se3_exp64(sgn * e) @ poses[k]
+                    cols.append(_graph_residuals64(p, edges))
+                J[:, 6 * (k - 1) + m] = (cols[0] - cols[1]) / (2 * h)
+        dx = np.linalg.lstsq(J, -r, rcond=None)[0]
+        for k in range(1, v):
+            poses[k] = _se3_exp64(dx[6 * (k - 1):6 * k]) @ poses[k]
+        if np.abs(dx).max() < 1e-12:
+            break
+    return poses
+
+
+def pose_graph_check(rel, device, drift_edge=7):
+    """The port's ``pose_graph.refine`` on ``device`` against
+    :func:`_refine64` on one graph: the chain ``rel`` (``rel[k]`` maps scan
+    k+1 into scan k) with a known drift put into edge ``drift_edge``
+    (0.0269 rad and 0.0616 m) and two loop-closure edges carrying the
+    undrifted chain's poses, which the refinement must use to pull the
+    drift back. Fails unless the refined poses agree with the float64
+    solve within 1e-4 (m and rad), far under the drift, and the refined
+    trajectory lies closer to the undrifted one than the odometry.
+    Returns the readings."""
+    import torch
+
+    from icp_variants_tpu_torch.parallel import pose_graph as pg
+
+    rel = np.asarray(rel, np.float64)
+    n = len(rel)
+    truth = [np.eye(4)]
+    for k in range(n):
+        truth.append(truth[-1] @ rel[k])
+    drifted = rel.copy()
+    drifted[drift_edge] = _se3_exp64(np.array([0.01, -0.015, 0.02, 0.05, -0.03, 0.02])) \
+        @ rel[drift_edge]
+    odometry, graph = pg.sequential_graph(drifted.astype(np.float32), device=device)
+    closures = [(0, n), (n // 4, 3 * n // 4)]
+    extra = [np.linalg.inv(truth[i]) @ truth[j] for i, j in closures]
+    graph = pg.PoseGraph(
+        edge_i=torch.cat([graph.edge_i, torch.tensor([i for i, _ in closures], device=device)]),
+        edge_j=torch.cat([graph.edge_j, torch.tensor([j for _, j in closures], device=device)]),
+        rel_poses=torch.cat([graph.rel_poses, torch.from_numpy(
+            np.stack(extra).astype(np.float32)).to(device)]),
+        weights=torch.cat([graph.weights, torch.ones(len(closures), device=device)]))
+    t0 = time.perf_counter()
+    refined = pg.refine(odometry, graph).cpu().numpy().astype(np.float64)
+    refine_s = time.perf_counter() - t0
+    edges = [(int(i), int(j), A, float(w)) for i, j, A, w in zip(
+        graph.edge_i.tolist(), graph.edge_j.tolist(),
+        graph.rel_poses.cpu().numpy().astype(np.float64), graph.weights.tolist())]
+    ref = _refine64(odometry, edges)
+    gap_t = float(np.abs(refined[:, :3, 3] - ref[:, :3, 3]).max())
+    gap_r = max(float(np.linalg.norm(_so3_log64(a[:3, :3].T @ b[:3, :3])))
+                for a, b in zip(refined, ref))
+
+    def ate(traj):
+        return float(np.sqrt(np.mean([np.sum((a[:3, 3] - b[:3, 3]) ** 2)
+                                      for a, b in zip(traj, truth)])))
+
+    def cost(traj):
+        return float(np.sum(_graph_residuals64(np.asarray(traj, np.float64), edges) ** 2))
+
+    out = dict(poses=n + 1, edges=len(edges), refine_s=refine_s, gap_t_m=gap_t, gap_r_rad=gap_r,
+               ate_odometry_m=ate(odometry), ate_refined_m=ate(refined), ate_f64_m=ate(ref),
+               cost_odometry=cost(odometry), cost_refined=cost(refined), cost_f64=cost(ref))
+    print(f"  pose graph ({device}; {n + 1} poses, {len(edges)} edges, edge {drift_edge} "
+          f"drifted, closures {closures}): refine {refine_s:.3f} s; ATE to the undrifted chain "
+          f"odometry {out['ate_odometry_m']:.6f} -> refined {out['ate_refined_m']:.6f} m "
+          f"(float64 {out['ate_f64_m']:.6f}); cost {out['cost_odometry']:.6e} -> "
+          f"{out['cost_refined']:.6e} (float64 {out['cost_f64']:.6e}); against the float64 "
+          f"solve {gap_t:.3e} m, {gap_r:.3e} rad", flush=True)
+    check(gap_t <= 1e-4 and gap_r <= 1e-4,
+          f"pose graph: refine on {device} equals a float64 Gauss-Newton on the same graph "
+          f"within 1e-4 m and 1e-4 rad ({gap_t:.2e} m, {gap_r:.2e} rad; the drift 0.0616 m, "
+          f"0.0269 rad)")
+    check(out["ate_refined_m"] < 0.5 * out["ate_odometry_m"]
+          and out["cost_refined"] < 0.05 * out["cost_odometry"],
+          "pose graph: the refinement pulled the drift back (ATE to the undrifted chain under "
+          "half the odometry's, the cost under 5% of it)")
+    return out
+
+
+def run_cli(argv, launches, label):
+    """``icp_variants_tpu_torch.__main__.main(argv)`` in-process, the card
+    synchronised after it; the kernels' launches counted from 0 around it
+    (added to ``launches``). Returns (stdout lines, wall seconds, its
+    launches)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from icp_variants_tpu_torch import __main__ as cli
+    from icp_variants_tpu_torch.ops import _cuda
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run_launches = collections.Counter(_cuda.LAUNCHES)
+    launches.update(run_launches)
+    check(rc == 0, f"{label}: main() returned {rc}")
+    return out.getvalue().splitlines(), wall, dict(run_launches)
+
+
+def entry_phase(card):
+    """Phase 10 on the card: the port's CLI (``__main__.main``) from files
+    it writes under a temporary directory. Returns the launches of its
+    runs. Raises :class:`Failure` on a failed check."""
+    import os
+    import re
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from icp_variants_tpu_torch.data import loaders, off_io, pcd_io, ply_io
+    from icp_variants_tpu_torch.ops import kdtree
+    from icp_variants_tpu_torch.pipeline import icp
+    from icp_variants_tpu_torch.runtime import native
+    from icp_variants_tpu_torch.workloads import eth as eth_wl
+
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    print(f"phase 10: entry points from files through the CLI [{card}]", flush=True)
+    launches = collections.Counter()
+    result = dict(card=card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        t0 = time.perf_counter()
+        csv, scene = write_eth_files(os.path.join(tmp, "eth"))
+        tum_dir = os.path.join(tmp, "tum")
+        write_tum_files(tum_dir)
+        result["write_s"] = time.perf_counter() - t0
+        print(f"  wrote {ETH_FILE_SCANS} scans of {N_POINTS} points ({len(ETH_ASCII_SCANS)} "
+              f"ASCII) and {ROOM_FRAMES} TUM frames of {TUM_W} x {TUM_H}: "
+              f"{result['write_s']:.2f} s", flush=True)
+
+        # ---- ETH from files, the headline configuration, with --refine ------
+        # One run under the profiler (the card's activity only, for the busy
+        # share): pairs/s from the sweep's wall (align_eth_batch, which ends
+        # in its reads of the results), the pose graph after it.
+        argv = ("eth", csv, "--batch", "16", "--max-pairs", "16", *ENTRY_ETH_ARGS, "--refine")
+        with Spy(eth_wl, "align_eth_batch") as sweep, Spy(native, "kd_partition") as part, \
+                Spy(kdtree, "kd_partition_np") as part_np, Spy(icp, "run_icp_batch") as runs, \
+                Spy(eth_wl, "refine_trajectory") as traj, \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            lines, wall, run_l = run_cli(argv, launches, "eth")
+            time.sleep(PROFILE_PAD_S)
+        device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA) / 1e3
+        res = sweep.calls[0]["out"]
+        n = len(res.pairs)
+        load = res.load
+        sweep_s = sweep.calls[0]["seconds"]
+        eth = dict(argv=" ".join(argv[2:]), wall_s=wall, pairs=n, sweep_s=sweep_s,
+                   pairs_per_s=n / sweep_s, launches=run_l, device_ms=device_ms,
+                   busy_share=device_ms / 1e3 / wall, load={k: v for k, v in load.items()},
+                   hidden_s=load["load"] - load["wait"],
+                   kd_partition_calls=len(part.calls), kd_partition_np_calls=len(part_np.calls),
+                   libicpio=str(native.LIB_PATH.relative_to(native._REPO_ROOT)),
+                   benchmark=[(p.initial_error, p.final_error) for p in res.pairs])
+        print(f"  eth {eth['argv']} (profiled, the card's activity): {n} pairs, the sweep "
+              f"{sweep_s:.3f} s end to end = {eth['pairs_per_s']:.3f} pairs/s; the command "
+              f"{wall:.3f} s; device kernel time {device_ms:.1f} ms, busy share "
+              f"{eth['busy_share']:.3f} [{card}]")
+        print(f"  host seconds: parse {load['parse']:.3f}, normals (on the card, Morton "
+              f"order, upload) {load['normals']:.3f}, kd build {load['kd']:.3f}, perturbation "
+              f"{load['perturb']:.3f}; load {load['load']:.3f}, of it hidden by the prefetch "
+              f"{eth['hidden_s']:.3f} (the consumer waited {load['wait']:.3f})")
+        print(f"  launches: {run_l}")
+        for p in res.pairs:
+            print(f"    pair {p.index:2d}: benchmark {p.initial_error:.6f} -> "
+                  f"{p.final_error:.3e}, rmse {p.initial_rmse:.6f} -> {p.final_rmse:.3e}")
+        check(lines[:n] == [f"pair {p.index}: benchmark {p.initial_error:.5f} -> "
+                            f"{p.final_error:.5f}" for p in res.pairs],
+              "eth: the CLI printed every pair's line")
+        check(n == 16 and all(p.final_error < p.initial_error for p in res.pairs),
+              "eth: every pair's final benchmark error below its initial one")
+        check(native._lib is not None and native.LIB_PATH.exists()
+              and native.LIB_PATH.parent == native.BUILD_DIR,
+              f"eth: the port's {eth['libicpio']} built and loaded")
+        check(len(part.calls) == 16 and not part_np.calls,
+              f"eth: native.kd_partition built all {len(part.calls)} kd indexes "
+              f"(numpy partition calls: {len(part_np.calls)})")
+        check(len(runs.calls) == 1, "eth: one run_icp_batch call for the 16-pair batch")
+
+        # The same clouds and kd indexes built directly (the sequential reader,
+        # the main thread, no prefetch), the same generator seed.
+        cfg = runs.calls[0]["args"][0]
+        t0 = time.perf_counter()
+        loader = loaders.ETHDataLoader(csv, capacity=runs.calls[0]["args"][1].capacity,
+                                       device=dev)
+        raw = [pcd_io.read_pcd(loader._path(f"scan{i:02d}.pcd")) for i in range(ETH_FILE_SCANS)]
+        scans = [loader._cloud_from_points(pts) for pts in raw]
+        rows = [loader.rows[k + 1] for k in range(16)]
+        check(all(r[1] == f"scan{k + 1:02d}.pcd" and r[2] == f"scan{k:02d}.pcd"
+                  for k, r in enumerate(rows)), "eth: the CSV chains scan k+1 onto scan k")
+        sources, targets, kds = [], [], []
+        for k in range(16):
+            scaled = eth_wl.scale_pose(loader._gt_pose(k), 0.1)
+            sources.append(eth_wl.perturb_cloud(scans[k + 1], scaled))
+            targets.append(scans[k])
+            kds.append(icp.build_kd_for(cfg, scans[k], device=dev))
+        src = icp.stack_clouds(sources)
+        counts = loader.point_counts(max_pairs=16)
+        direct = icp.run_icp_batch(
+            cfg, src, icp.stack_clouds(targets), gt_source_points=src.points,
+            gt_target_points=torch.stack([s.points for s in scans[1:]]), gt_valid=src.valid,
+            generator=torch.Generator(device=dev).manual_seed(0), run_benchmark=True,
+            kd_indexes=kdtree.stack_kd_indexes(kds), num_source_points=int(counts.max()),
+            device=dev)
+        poses = direct.pose.cpu().numpy()
+        cli_poses = np.stack([p.pose for p in res.pairs])
+        gap = float(np.abs(poses.astype(np.float64) - cli_poses).max())
+        eth["direct_s"] = time.perf_counter() - t0
+        eth["direct_pose_gap"] = gap
+        ascii_gap = max(float(np.abs(raw[i] - scene).max()) for i in ETH_ASCII_SCANS)
+        check(np.array_equal(poses, cli_poses)
+              and np.array_equal(direct.trace.benchmark.cpu().numpy(),
+                                 np.stack([p.benchmark_per_iteration for p in res.pairs])),
+              f"eth: the CLI's 16 final poses and benchmark curves equal a direct "
+              f"run_icp_batch on the same clouds, kd indexes and seed, bit for bit "
+              f"(gap {gap:.3e}; the direct load {eth['direct_s']:.2f} s)")
+        check(all(np.array_equal(raw[i], scene)
+                  for i in range(ETH_FILE_SCANS) if i not in ETH_ASCII_SCANS)
+              and 0 < ascii_gap < 1e-5,
+              f"eth: binary scans read back bit for bit, ASCII scans within %.7g's rounding "
+              f"({ascii_gap:.2e} m)")
+        del direct, src, sources, targets, kds, scans, raw
+        torch.cuda.empty_cache()
+
+        ate = [ln for ln in lines if ln.startswith("trajectory ATE")]
+        nums = [float(x) for x in re.findall(r"(\d+\.\d+) m", ate[0])] if ate else []
+        eth.update(refine_s=wall - sweep_s, ate_odometry_m=nums[:1], ate_refined_m=nums[1:2],
+                   refine_lines=lines[-3:])
+        print(f"  eth --refine: {eth['refine_s']:.3f} s after the sweep; " + "; ".join(lines[-3:]))
+        check(len(nums) == 2 and nums[1] <= nums[0] + 1e-5 and nums[1] < 1e-3,
+              f"eth --refine: trajectory ATE odometry {nums[:1]} m -> refined {nums[1:2]} m")
+        # The pre-aligned chain leaves the CLI's refine nothing to correct,
+        # so its graph is held on the card against a float64 solve with a
+        # drifted edge and two loop closures: the CLI's 16 edges, each
+        # composed with eth_true_pose(k) to give the chain a real shape.
+        rel = traj.calls[0]["out"][2].rel_poses.cpu().numpy()
+        eth["pose_graph"] = pose_graph_check(
+            np.stack([eth_true_pose(k) @ rel[k] for k in range(len(rel))]), dev)
+        result["eth"] = eth
+
+        # ---- checkpoint and resume ------------------------------------------
+        ck = os.path.join(tmp, "ck")
+        argv_ck = ("eth", csv, "--batch", "4", "--max-pairs", "8", "--checkpoint-dir", ck,
+                   *ENTRY_ETH_ARGS)
+        with Spy(eth_wl, "align_eth_batch") as sweep:
+            _, wall_c, run_lc = run_cli(argv_ck, launches, "eth --checkpoint-dir")
+        first = sweep.calls[0]["out"]
+        with Spy(eth_wl, "align_eth_batch") as sweep, \
+                Spy(loaders.ETHDataLoader, "get_items") as loads, Spy(icp, "run_icp_batch") as rr:
+            _, wall_c2, run_lc2 = run_cli(argv_ck, launches, "eth --checkpoint-dir, again")
+        again = sweep.calls[0]["out"]
+        ld = first.load
+        ck_row = dict(wall_s=wall_c, launches=run_lc, load=dict(ld), resume_wall_s=wall_c2,
+                      resume_launches=run_lc2, resume_loads=len(loads.calls),
+                      resume_runs=len(rr.calls))
+        print(f"  eth --batch 4 --max-pairs 8 --checkpoint-dir: {wall_c:.3f} s; normals spans "
+              f"{ld.get('normals_device_ms', 0.0):.1f} device ms, of them "
+              f"{ld.get('overlap_ms', 0.0):.1f} while batch 0's run was in flight; hidden "
+              f"{ld['load'] - ld['wait']:.3f} of {ld['load']:.3f} host s; again: "
+              f"{wall_c2:.3f} s, {len(loads.calls)} loads, {len(rr.calls)} runs")
+        check(ld.get("overlap_ms", 0.0) > 0,
+              "prefetch: batch 1's normals (worker stream) ran on the card while batch 0's "
+              "run was in flight")
+        check(len(first.pairs) == 8 and not loads.calls and not rr.calls and not run_lc2,
+              "checkpoint: the second run resumed all 8 pairs and registered nothing")
+        check(all(np.array_equal(a.pose, b.pose) for a, b in zip(first.pairs, again.pairs)),
+              "checkpoint: the resumed poses equal the first run's")
+        result["checkpoint"] = ck_row
+
+        # ---- room, both modes -------------------------------------------------
+        room = {}
+        for label, tracked, extra in (
+                ("knn", ROOM_TRACKED, ()),
+                ("projective", ROOM_TRACKED, ("--projective",)),
+                ("projective --artifacts-dir", ROOM_TRACKED_ARTIFACTS,
+                 ("--projective", "--artifacts-dir", os.path.join(tmp, "room_art")))):
+            argv_r = ("room", tum_dir, "--frame-step", "1", "--max-frames", str(tracked - 1),
+                      *extra)
+            lines, wall_m, run_lm = run_cli(argv_r, launches, f"room {label}")
+            rm = [tuple(float(x) for x in re.findall(r"rmse (\S+) -> (\S+)", ln)[0])
+                  for ln in lines if ln.startswith("frame ")]
+            room[label] = dict(wall_s=wall_m, launches=run_lm, rmse=rm)
+            print(f"  room {label}: {len(rm)} frames in {wall_m:.3f} s; rmse "
+                  + ", ".join(f"{a:.5f} -> {b:.5f}" for a, b in rm))
+            check(len(rm) == tracked and all(b < a for a, b in rm),
+                  f"room {label}: every tracked frame's final RMSE below its initial one")
+        meshes = sorted(os.listdir(os.path.join(tmp, "room_art")))
+        m0 = off_io.read_off(os.path.join(tmp, "room_art", "mesh_0.off"))
+        check(len(meshes) == ROOM_TRACKED_ARTIFACTS + 1 and len(m0.vertices) > 0,
+              f"room --artifacts-dir: {len(meshes)} meshes, mesh_0 {len(m0.vertices)} vertices")
+        result["room"] = room
+
+        # ---- experiments and bunny -------------------------------------------
+        out_dir = os.path.join(tmp, "exp")
+        lines, wall_x, run_lx = run_cli(
+            ("experiments", "assets/experiment.csv", "--out-dir", out_dir,
+             "--room-data-dir", tum_dir), launches, "experiments")
+        summary = json.loads("\n".join(lines))
+        files = sorted(os.listdir(out_dir))
+        curves = {f: np.loadtxt(os.path.join(out_dir, f)) for f in files if f.endswith(".txt")}
+        print(f"  experiments: {wall_x:.3f} s, rows {sorted(summary)}, files {files}")
+        check(len(summary) == 4 and not any("error" in v for v in summary.values())
+              and "bunny0_RMSE.txt" in curves and "room1_RMSE0.txt" in curves
+              and all(np.isfinite(c).all() and c.size > 0 for c in curves.values()),
+              "experiments: 3 bunny rows and 1 room row, their error files read back")
+        art = os.path.join(tmp, "bunny_art")
+        lines, wall_b, run_lb = run_cli(("bunny", "--artifacts-dir", art), launches, "bunny")
+        plys = {f: ply_io.read_ply(os.path.join(art, f)) for f in sorted(os.listdir(art))
+                if f.endswith(".ply")}
+        joined = off_io.read_off(os.path.join(art, "bunny_icp.off"))
+        rmse_txt = np.loadtxt(os.path.join(art, "RMSE.txt"))
+        print(f"  bunny --artifacts-dir: {wall_b:.3f} s, {lines[-1]}; "
+              + ", ".join(f"{k} {len(v['points'])} points" for k, v in plys.items())
+              + f", bunny_icp.off {len(joined.vertices)} vertices")
+        check(len(plys) == 3 and all(len(v["points"]) > 1000 for v in plys.values())
+              and len(joined.vertices) > 2000 and rmse_txt.shape == (20,),
+              "bunny: the .ply, .off and RMSE.txt artifacts read back")
+        result.update(experiments=dict(wall_s=wall_x, launches=run_lx, files=files),
+                      bunny=dict(wall_s=wall_b, launches=run_lb))
+    print("  entry phase: " + json.dumps(result, default=float))
+    return launches
+
+
 def record(rows_eth, launches_eth, rows, launches) -> None:
-    """Phase 10: the kernels line. Each kd kernel's time, bound and plain
+    """Phase 11: the kernels line. Each kd kernel's time, bound and plain
     time are at the colour path's full shapes (D = 6; the plain version in
     windows of rows, visited_search's on the live rows only), its ETH
     numbers (D = 3, full shapes) under ``eth``, visited_search's at the
@@ -3408,7 +4111,7 @@ def record(rows_eth, launches_eth, rows, launches) -> None:
     mode run on no pipeline path, and their launches are phase 7's direct
     calls, read from the wrappers' counts, as are phase 8's for the
     ablation kernel and the probe."""
-    print("phase 10: the record", flush=True)
+    print("phase 11: the record", flush=True)
     sources_of = {
         "box_topk": ("icp_variants_tpu_torch/csrc/box_topk.cu",
                      "icp_variants_tpu/ops/kdtree.py:501"),

@@ -28,11 +28,6 @@ from icp_variants_tpu_torch.ops import normals as normals_ops
 from icp_variants_tpu_torch.pipeline import icp as icp_mod
 from icp_variants_tpu_torch.pipeline.config import ICPConfig, Matching
 
-# From this many points on, normals come from the Morton-banded k-NN
-# (estimate_normals_knn_fast); below, from the dense one.
-FAST_NORMALS_MIN_POINTS = 20_000
-
-
 @dataclass
 class RegistrationResult:
     pose: np.ndarray               # (4, 4) estimated transform (source -> target)
@@ -67,7 +62,7 @@ def register(
     per-iteration diagnostics.
 
     Without normals they are estimated on the device: k-NN PCA by the
-    Morton-banded exact search from ``FAST_NORMALS_MIN_POINTS`` points on,
+    Morton-banded exact search from ``normals.FAST_NORMALS_MIN_POINTS`` points on,
     else by the dense one. The clouds are Morton ordered unless matching is
     projective (which indexes the target as an image grid). Large targets
     get a kd index (``icp.build_kd_for``). Random selection draws from a
@@ -81,13 +76,7 @@ def register(
     def make_cloud(pts, nrm, col):
         pts = np.asarray(pts, np.float32)
         if nrm is None:
-            finite = np.isfinite(pts).all(axis=1)
-            if len(pts) >= FAST_NORMALS_MIN_POINTS:
-                nrm = normals_ops.estimate_normals_knn_fast(pts, finite, k=normal_k, device=dev)
-            else:
-                nrm = normals_ops.estimate_normals_knn(
-                    torch.from_numpy(pts).to(dev), torch.from_numpy(finite).to(dev), k=normal_k)
-            nrm = nrm.cpu().numpy()
+            nrm = normals_ops.estimate_normals_host(pts, k=normal_k, device=dev)
         return cloud_lib.from_numpy(pts, normals=nrm, colors=col, morton_order=morton,
                                     device=dev)
 

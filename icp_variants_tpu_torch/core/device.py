@@ -15,3 +15,13 @@ def resolve_device(device=None) -> torch.device:
             "device='cpu' to run on the CPU"
         )
     return dev
+
+
+def timing_event(device: torch.device):
+    """A CUDA timing event recorded now on ``device``'s current stream of
+    this thread; None on the CPU."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev

@@ -45,6 +45,7 @@ import torch
 from icp_variants_tpu_torch.core import se3
 from icp_variants_tpu_torch.core.device import resolve_device
 from icp_variants_tpu_torch.ops import _cuda, knn
+from icp_variants_tpu_torch.runtime import native
 
 # Sentinel for padded block slots: finite in f32, never the argmin.
 LEAF_PAD = 1.0e9
@@ -124,8 +125,9 @@ def build_kd_index(
     capacity: int | None = None,
     device=None,
 ) -> KDIndex:
-    """Build the k-d search index of one target cloud on the host (numpy)
-    and place it on ``device`` (``None`` = the card). ``points`` is the
+    """Build the k-d search index of one target cloud on the host (the
+    native partition at D = 3, numpy at D = 6, as the JAX package builds
+    it) and place it on ``device`` (``None`` = the card). ``points`` is the
     (capacity, D) padded cloud array; ``valid`` masks its real rows
     (default: finite-coordinate rows). Shapes depend on ``capacity`` only."""
     dev = resolve_device(device)
@@ -144,7 +146,12 @@ def build_kd_index(
     cap = -(-capacity // n_blocks)
     d = points.shape[1]
 
-    perm, blocks = kd_partition_np(points[rows], depth)
+    # The JAX package's route: the native partition at D = 3 (multi-core),
+    # numpy at D = 6 (6-dim features split on their widest axis there).
+    if d == 3:
+        perm, blocks = native.kd_partition(points[rows], depth)
+    else:
+        perm, blocks = kd_partition_np(points[rows], depth)
     pts = np.full((n_blocks, cap, d), LEAF_PAD, np.float32)
     block_orig = np.full((n_blocks, cap), -1, np.int32)
     block_min = np.full((n_blocks, d), np.inf, np.float32)

@@ -37,6 +37,10 @@ SENTINEL = 2.0e6
 # Candidate distances held at once by the tiled k-NN (floats): a chunk of
 # query tiles is sized to stay within this.
 CHUNK_CANDIDATES = 1 << 25
+# From this many points on, a host cloud's normals come from the
+# Morton-banded exact k-NN, below it from the dense one (the JAX package's
+# switch in its api.py and data/loaders.py).
+FAST_NORMALS_MIN_POINTS = 20_000
 
 
 def backproject_depth(depth, intrinsics, extrinsics_inv, max_distance: float = 0.1):
@@ -323,3 +327,19 @@ def estimate_normals_knn(points: torch.Tensor, valid: torch.Tensor, k: int = 5,
           else torch.as_tensor(viewpoint, dtype=points.dtype).to(points.device))
     idx, _ = knn_lib.knn_k(points, points, k)
     return _covariance_normals(points, valid, idx, k, vp)
+
+
+def estimate_normals_host(points: np.ndarray, k: int = 5, device=None) -> np.ndarray:
+    """k-NN PCA normals of a host (N, 3) cloud, estimated on ``device``
+    (``None`` = the card) and returned on the host: the Morton-banded
+    search from :data:`FAST_NORMALS_MIN_POINTS` points on, the dense one
+    below. Rows with a non-finite coordinate are invalid (NaN normals)."""
+    dev = resolve_device(device)
+    points = np.asarray(points, np.float32)
+    finite = np.isfinite(points).all(axis=1)
+    if len(points) >= FAST_NORMALS_MIN_POINTS:
+        nrm = estimate_normals_knn_fast(points, finite, k=k, device=dev)
+    else:
+        nrm = estimate_normals_knn(torch.from_numpy(points).to(dev),
+                                   torch.from_numpy(finite).to(dev), k=k)
+    return nrm.cpu().numpy()

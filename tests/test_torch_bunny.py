@@ -33,6 +33,7 @@ from icp_variants_tpu import api as japi
 from icp_variants_tpu.core import cloud as jcloud
 from icp_variants_tpu.data import mesh as jmesh
 from icp_variants_tpu.data import off_io as joff
+from icp_variants_tpu.data import ply_io as jply
 from icp_variants_tpu.data.loaders import BunnyDataLoader as JLoader
 from icp_variants_tpu.pipeline import config as jconfig
 from icp_variants_tpu.pipeline import icp as jicp
@@ -42,6 +43,7 @@ from icp_variants_tpu_torch import convert
 from icp_variants_tpu_torch.core import cloud as tcloud
 from icp_variants_tpu_torch.data import mesh as tmesh
 from icp_variants_tpu_torch.data import off_io as toff
+from icp_variants_tpu_torch.data import ply_io as tply
 from icp_variants_tpu_torch.data.loaders import ASSET_ROOT
 from icp_variants_tpu_torch.data.loaders import BunnyDataLoader as TLoader
 from icp_variants_tpu_torch.pipeline import config as tconfig
@@ -242,9 +244,30 @@ def test_register_large_cloud_takes_fast_normals_and_kd_path(monkeypatch):
     assert np.abs(resid[:3, 3]).max() < 1e-3
 
 
-def test_align_bunny_artifacts_are_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
-        tbunny.align_bunny(artifacts_dir="unused", device="cpu")
+def test_align_bunny_artifacts_are_not_ported(tmp_path):
+    """(Kept name: the artifacts were not ported before.) align_bunny's
+    artifacts against JAX's: the same files; source and target clouds
+    equal bit for bit, the moved source within the runs' pose gap; the
+    joined mesh of the same size; RMSE.txt the run's curve."""
+    jbunny.align_bunny(artifacts_dir=str(tmp_path / "j"))
+    run = tbunny.align_bunny(artifacts_dir=str(tmp_path / "t"), device="cpu")
+    names = sorted(os.listdir(tmp_path / "t"))
+    assert names == sorted(os.listdir(tmp_path / "j")) == [
+        "RMSE.txt", "bunny_final_source.ply", "bunny_icp.off", "bunny_source.ply",
+        "bunny_target.ply"]
+    for n in ("bunny_source.ply", "bunny_target.ply"):
+        assert (tmp_path / "t" / n).read_bytes() == (tmp_path / "j" / n).read_bytes()
+    a = tply.read_ply(str(tmp_path / "t" / "bunny_final_source.ply"))
+    b = jply.read_ply(str(tmp_path / "j" / "bunny_final_source.ply"))
+    np.testing.assert_allclose(a["points"], b["points"], atol=1e-3)
+    np.testing.assert_allclose(a["normals"], b["normals"], atol=1e-3)
+    tm = tmesh.TriMesh.load(str(tmp_path / "t" / "bunny_icp.off"))
+    jm = tmesh.TriMesh.load(str(tmp_path / "j" / "bunny_icp.off"))
+    np.testing.assert_array_equal(tm.triangles, jm.triangles)
+    np.testing.assert_array_equal(tm.colors, jm.colors)
+    np.testing.assert_allclose(tm.vertices, jm.vertices, atol=1e-3)
+    np.testing.assert_allclose(np.loadtxt(tmp_path / "t" / "RMSE.txt"), run.rmse_per_iteration,
+                               rtol=1e-5)
 
 
 @pytest.mark.cuda

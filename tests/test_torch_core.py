@@ -188,14 +188,23 @@ def test_rejection_matches_jax():
 
 
 def test_port_imports_no_jax():
-    """Importing the port (and chip_smoke) leaves jax, the JAX package and
-    bench.py out of sys.modules; ``icp_variants_tpu`` is a prefix of the port's own
-    name, so the check is on the module itself and its submodules."""
+    """Importing the port (every module, and chip_smoke) and running its CLI's
+    ``--help`` leave jax, the JAX package and bench.py out of sys.modules;
+    ``icp_variants_tpu`` is a prefix of the port's own name, so the check is
+    on the module itself and its submodules."""
     code = (
-        "import sys\n"
+        "import sys, pkgutil, importlib, contextlib, io\n"
         "import icp_variants_tpu_torch, icp_variants_tpu_torch.convert\n"
-        "import icp_variants_tpu_torch.pipeline.icp, icp_variants_tpu_torch.ops.kdtree\n"
-        "import icp_variants_tpu_torch.data.rgbd, icp_variants_tpu_torch.ops.normals\n"
+        "for m in pkgutil.walk_packages(icp_variants_tpu_torch.__path__,\n"
+        "                               'icp_variants_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from icp_variants_tpu_torch.__main__ import main\n"
+        "for argv in (['--help'], ['eth', '--help'], ['room', '--help']):\n"
+        "    with contextlib.redirect_stdout(io.StringIO()):\n"
+        "        try:\n"
+        "            main(argv)\n"
+        "        except SystemExit:\n"
+        "            pass\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'bench'\n"
         "       or m == 'icp_variants_tpu' or m.startswith('icp_variants_tpu.')]\n"

@@ -30,11 +30,13 @@ from icp_variants_tpu.ops import kdtree as jkd
 from icp_variants_tpu.ops import knn as jknn
 from icp_variants_tpu.pipeline import config as jconfig
 from icp_variants_tpu.pipeline import icp as jicp
+from icp_variants_tpu.runtime import native as jnative
 from icp_variants_tpu_torch import convert
 from icp_variants_tpu_torch.ops import kdtree as tkd
 from icp_variants_tpu_torch.ops import knn as tknn
 from icp_variants_tpu_torch.pipeline import config as tconfig
 from icp_variants_tpu_torch.pipeline import icp as ticp
+from icp_variants_tpu_torch.runtime import native as tnative
 
 torch.set_num_threads(2)
 
@@ -617,7 +619,7 @@ def _radius_reference(q, radius, bmin, bmax, pages, members):
 
 @pytest.mark.parametrize("d", [3, 6])
 @pytest.mark.parametrize("k", [0, 4])
-def test_kd_radius_search_plain_ties_match_bitmap_kernel(d, k):
+def test_kd_radius_search_plain_ties_match_bitmap_kernel(d, k, monkeypatch):
     """On integer clouds, kd_radius_search_plain equals JAX's bitmap route
     (_kd_bitmap_search in interpret mode) in d2 on every row, and wherever
     the two indices differ both points lie at that d2; the plain version's
@@ -625,7 +627,13 @@ def test_kd_radius_search_plain_ties_match_bitmap_kernel(d, k):
     strictly below the radius (a numpy brute force), with exact ties where
     a later pick holds the lower index, rows whose nearest point lies at
     exactly the radius (no match), and picks whose bound equals the
-    radius (members)."""
+    radius (members).
+
+    The tied cases' presence depends on the kd partition's order within
+    blocks, so JAX's build is pinned to its native route at D = 3 (the
+    port's route; the library built from the same ``native/icpio.cpp``):
+    otherwise it takes numpy's wherever its own library failed to load."""
+    monkeypatch.setattr(jnative, "kd_partition", tnative.kd_partition)
     maxd = 100.0
     t = _grid_cloud(d, 8, 600, seed=90 + d)
     q = _grid_queries(d, 400, seed=91 + d)
@@ -678,6 +686,95 @@ def test_kd_radius_search_plain_ties_match_bitmap_kernel(d, k):
     assert (at_radius & (pd == r)).sum() > 0
     assert ((lb == r[:, None]) & members).any(1).sum() > 0
     assert (n_tied > 1).sum() > 10
+
+
+def _midpoint_ties(t, tidx, n_max=400):
+    """Queries at the midpoint of two integer target points in different kd
+    blocks that are its only nearest points (an exact f32 tie), kept where
+    the two blocks' box bounds differ, so that the first ``box_topk`` pick
+    may hold either point."""
+    po = tidx.page_orig.numpy()
+    page = np.empty(len(t), np.int64)
+    page[po[po >= 0]] = np.flatnonzero(po >= 0)
+    blk = page // tidx.pages.shape[-1]
+    bmin, bmax = tidx.block_min.numpy(), tidx.block_max.numpy()
+    tree = cKDTree(t)
+    _, nbr = tree.query(t, k=4)
+    out = []
+    for a in range(len(t)):
+        for b in nbr[a, 1:]:
+            m = (t[a] + t[b]) / 2
+            if blk[a] == blk[b] or len(out) >= n_max:
+                continue
+            d, _ = tree.query(m, k=3)
+            lb = [float((np.maximum(np.maximum(bmin[k] - m, m - bmax[k]), 0) ** 2).sum())
+                  for k in (blk[a], blk[b])]
+            if d[0] == d[1] < d[2] and lb[0] != lb[1]:
+                out.append(m)
+    return np.unique(np.array(out, np.float32), axis=0)
+
+
+@pytest.mark.parametrize("data,parts", [("grid", "jax"), ("midpoints", "port")])
+def test_warm_and_cold_part_only_on_exact_ties(data, parts, monkeypatch):
+    """Why the dense warm and cold runs may part (``chip_smoke.py`` phase 6
+    gates it row by row on the card), in both packages: fed the cold
+    matches as its cache (the previous iteration at the same pose), the
+    warm matcher past the resident rule agrees with the cold one in
+    validity and d2 on every row, and takes another point only on exact
+    ties. The cold matcher takes a tie in its earliest ``box_topk`` pick,
+    the port's warm one (kd_radius_search) at the lowest page index, and
+    JAX's bitmap kernel by its own rule, so the two packages part on
+    different tied rows: JAX's on the integer grid's ties, the port's on
+    midpoints of two points in different blocks. Across the packages
+    validity and d2 are equal, indices equal or tied. JAX's kd build is
+    pinned to its native route, as in the test above."""
+    monkeypatch.setattr(jnative, "kd_partition", tnative.kd_partition)
+    maxd = 100.0
+    if data == "grid":
+        t = _grid_cloud(3, 8, 600, seed=93)
+        q = _grid_queries(3, 400, seed=94)
+    else:
+        rng = np.random.default_rng(95)
+        t = np.unique(rng.integers(0, 48, (6000, 3)), axis=0)
+        t = t[rng.permutation(len(t))][:4096].astype(np.float32)
+    jidx = jkd.build_kd_index(t, block_target=256)
+    tidx = convert.kd_index_from_arrays(jidx, "cpu")
+    if data == "midpoints":
+        q = _midpoint_ties(t, tidx)
+    jt = jknn.build_target_index(jnp.asarray(t), tile_t=jknn.V2_TILE_T)
+    tt = convert.target_index_from_arrays(jt, "cpu")
+    jq, tq = jnp.asarray(q), torch.from_numpy(q)
+    assert jkd._resident_layout(jidx)[-1] and tkd._resident_layout(tidx)[-1]
+    cold = dict(jax=[_n(x) for x in jkd.match_kd(jq, jidx, jt, maxd, impl="v2", interpret=True)],
+                port=[x.numpy() for x in tkd.match_kd(tq, tidx, tt, maxd)])
+    monkeypatch.setattr(jknn, "RESIDENT_VMEM_BUDGET", 1024)
+    monkeypatch.setattr(tknn, "RESIDENT_VMEM_BUDGET", 1024)
+    assert not jkd._resident_layout(jidx)[-1] and not tkd._resident_layout(tidx)[-1]
+    warm = dict(
+        jax=[_n(x) for x in jkd.match_kd_warm(
+            jq, jidx, maxd, jnp.asarray(cold["jax"][0].astype(np.int32)), jnp.asarray(t),
+            fallback_index=jt, impl="v2", interpret=True)],
+        port=[x.numpy() for x in tkd.match_kd_warm(
+            tq, tidx, maxd, torch.from_numpy(cold["port"][0].astype(np.int32)),
+            torch.from_numpy(t), fallback_index=tt)])
+
+    def d2_to(idx):
+        return ((t[idx] - q) ** 2).sum(1)
+
+    for a, b in ((cold["port"], cold["jax"]), (warm["port"], warm["jax"])):
+        np.testing.assert_array_equal(a[2], b[2])
+        np.testing.assert_array_equal(a[1][a[2]], b[1][b[2]])
+        np.testing.assert_array_equal(d2_to(a[0])[a[2]], d2_to(b[0])[b[2]])
+    parted = {}
+    for pkg in ("jax", "port"):
+        (wi, wd, wv), (ci, cd, cv) = warm[pkg], cold[pkg]
+        np.testing.assert_array_equal(wv, cv)
+        np.testing.assert_array_equal(wd[cv], cd[cv])
+        part = cv & (wi != ci)
+        np.testing.assert_array_equal(d2_to(wi)[part], cd[part])
+        np.testing.assert_array_equal(d2_to(ci)[part], cd[part])
+        parted[pkg] = int(part.sum())
+    assert parted[parts] > 0, parted
 
 
 @pytest.mark.parametrize("b,n,nc,cap_pad,k", [
