@@ -193,8 +193,28 @@ Phases, in order; any failure exits nonzero:
    (``pose_graph_check``). ``experiments assets/experiment.csv``
    (3 bunny rows, 1 room row) and ``bunny --artifacts-dir``: the error
    files and artifacts read back.
-11. The record: launches of each kernel on the main paths (the ETH, colour,
-   projective, dense, register and entry-point runs, the profile path); fails unless each ran
+11. The multi-device path (``parallel/sharded_icp``, ``parallel/distributed``,
+   ``pose_graph.refine_sharded``): the port's per-rank worker
+   (``scripts/multihost_rehearsal.py``) as separate processes on the one
+   card, on phase 3's pairs, kd indexes and draws written as numpy under a
+   temporary directory (the ETH headline's exact arm, 16 pairs x 365,056
+   rows x 50 iterations, every 64th source row a ground-truth row): a world
+   of one (nccl, mesh 1 x 1) equal to the unsharded run bit for bit; a
+   world of two (gloo on the card) with mesh pairs 1 x points 2 (each rank
+   182,528 query rows a pair against the whole targets, fed phase 3's own
+   draws split by shard: iteration 0's match counts equal, poses within
+   rtol 1e-3 / atol 5e-5, mean translation error within 0.01 mm, both
+   ranks bit-identical) and pairs 2 x points 1 (8 pairs a rank; case 2's
+   gates: ``torch.sum`` over the query rows takes another order at 8 pairs,
+   ``scripts/batch_parting.py``); a shard of padding only (2 pairs of 256 source rows over two
+   points shards, SELECT_ALL): box_topk, kd_block_search and
+   visited_search launch on it and return misses; ``refine_sharded`` of
+   phase 10's pose graph on two ranks within 1e-4 / 1e-5 of the
+   single-device refine and within phase 10's gate of the float64 solve.
+   Per rank and case: each kernel's launches, the collectives an
+   iteration, the wall (two ranks sharing one card: not a scaling figure).
+12. The record: launches of each kernel on the main paths (the ETH, colour,
+   projective, dense, register, entry-point and sharded runs, the profile path); fails unless each ran
    where its path needs it (pruned_nn_search and the pose mode, on no
    pipeline path, count phase 7's direct calls, and the ablation kernel and
    the block search's probe phase 8's checked calls, read from the
@@ -737,6 +757,18 @@ def tum_base_config(**overrides):
     return cfg.replace(**overrides)
 
 
+def eth_config(**overrides):
+    """The ETH headline configuration (symmetric linear ICP, p = 0.01
+    Bernoulli selection, squared max distance 10, 50 iterations), its exact
+    arm unless ``matching_checks`` is overridden."""
+    from icp_variants_tpu_torch.pipeline.config import ICPConfig, Metric, Minimizer, Selection
+
+    return ICPConfig(metric=Metric.SYMMETRIC, minimizer=Minimizer.LINEAR,
+                     selection=Selection.RANDOM, selection_proba=SELECTION_P,
+                     n_iterations=N_ITERATIONS, max_distance=MAX_DISTANCE,
+                     matching_checks=0).replace(**overrides)
+
+
 def time_ms(fn, reps):
     """Median ms of ``fn`` between CUDA events, after one warm-up call."""
     import torch
@@ -834,15 +866,16 @@ def main() -> int:
     del colour
     rows_tool = timed("8 tooling", tooling_phase, eth)
     launches_register = timed("9 register", register_phase, eth, card)
+    launches_entry, graph_case = timed("10 entry points", entry_phase, card)
+    sharded = timed("11 multi-device", multidevice_phase, eth, graph_case, card)
     del eth
-    launches_entry = timed("10 entry points", entry_phase, card)
     print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}),
           flush=True)
     record(rows_eth, launches_eth,
            {**rows_color, **rows_proj, **rows_dense, **rows_match, **rows_tool},
            collections.Counter(launches_color) + collections.Counter(launches_proj)
            + collections.Counter(launches_dense) + collections.Counter(launches_match)
-           + launches_register + launches_entry)
+           + launches_register + launches_entry, sharded)
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -864,7 +897,8 @@ def measurement_builds():
 def eth_phase(n_pairs: int = BATCH_PAIRS, n_points: int = N_POINTS):
     """Phases 2-3 on the card with ``n_pairs`` pairs of ``n_points``
     points; returns the kernel rows, the launches of the main-path runs and
-    the path's data (sources, host targets, kd indexes) for phase 8.
+    the path's data (sources, host targets, kd indexes) for phase 8, and
+    the exact arm's first timed run and its seed for phase 11.
     Raises :class:`Failure` on a failed check."""
     import torch
 
@@ -872,9 +906,6 @@ def eth_phase(n_pairs: int = BATCH_PAIRS, n_points: int = N_POINTS):
     from icp_variants_tpu_torch.core import se3
     from icp_variants_tpu_torch.ops import _cuda, kdtree, knn, selection
     from icp_variants_tpu_torch.pipeline import icp
-    from icp_variants_tpu_torch.pipeline.config import (
-        ICPConfig, Metric, Minimizer, Selection,
-    )
 
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
@@ -1027,12 +1058,7 @@ def eth_phase(n_pairs: int = BATCH_PAIRS, n_points: int = N_POINTS):
     arms, runs = {}, {}
     checks_of = {"exact": 0, "checks16": CHECKS_APPROX}
     for arm, checks in checks_of.items():
-        cfg = ICPConfig(
-            metric=Metric.SYMMETRIC, minimizer=Minimizer.LINEAR,
-            selection=Selection.RANDOM, selection_proba=SELECTION_P,
-            n_iterations=N_ITERATIONS, max_distance=MAX_DISTANCE,
-            matching_checks=checks,
-        )
+        cfg = eth_config(matching_checks=checks)
 
         def run(seed, cfg=cfg):
             return icp.run_icp_batch(cfg, sources, targets, kd_indexes=kd,
@@ -1106,7 +1132,9 @@ def eth_phase(n_pairs: int = BATCH_PAIRS, n_points: int = N_POINTS):
     check(launches["visited_search"] >= 1, "visited_search launched on the main path")
     print("  main path: " + json.dumps(arms))
 
-    return rows, launches, dict(sources=sources, targets_host=targets_host, kd=kd)
+    # timed_runs' first round runs seed 2 (phase 11 replays its draws).
+    return rows, launches, dict(sources=sources, targets_host=targets_host, kd=kd,
+                                exact=results["exact"], exact_seed=2)
 
 
 def timed_runs(runs):
@@ -3775,7 +3803,8 @@ def pose_graph_check(rel, device, drift_edge=7):
     drift back. Fails unless the refined poses agree with the float64
     solve within 1e-4 (m and rad), far under the drift, and the refined
     trajectory lies closer to the undrifted one than the odometry.
-    Returns the readings."""
+    Returns the readings, and the graph (host arrays: the base poses and
+    the edges) with its refined and float64 poses."""
     import torch
 
     from icp_variants_tpu_torch.parallel import pose_graph as pg
@@ -3832,7 +3861,10 @@ def pose_graph_check(rel, device, drift_edge=7):
           and out["cost_refined"] < 0.05 * out["cost_odometry"],
           "pose graph: the refinement pulled the drift back (ATE to the undrifted chain under "
           "half the odometry's, the cost under 5% of it)")
-    return out
+    arrays = dict(base_poses=np.asarray(odometry, np.float32),
+                  edge_i=graph.edge_i.cpu().numpy(), edge_j=graph.edge_j.cpu().numpy(),
+                  rel_poses=graph.rel_poses.cpu().numpy(), weights=graph.weights.cpu().numpy())
+    return out, dict(arrays=arrays, refined=refined, f64=ref)
 
 
 def run_cli(argv, launches, label):
@@ -3865,7 +3897,8 @@ def run_cli(argv, launches, label):
 def entry_phase(card):
     """Phase 10 on the card: the port's CLI (``__main__.main``) from files
     it writes under a temporary directory. Returns the launches of its
-    runs. Raises :class:`Failure` on a failed check."""
+    runs and the pose graph of :func:`pose_graph_check` (for phase 11).
+    Raises :class:`Failure` on a failed check."""
     import os
     import re
     import tempfile
@@ -4002,7 +4035,7 @@ def entry_phase(card):
         # drifted edge and two loop closures: the CLI's 16 edges, each
         # composed with eth_true_pose(k) to give the chain a real shape.
         rel = traj.calls[0]["out"][2].rel_poses.cpu().numpy()
-        eth["pose_graph"] = pose_graph_check(
+        eth["pose_graph"], graph_case = pose_graph_check(
             np.stack([eth_true_pose(k) @ rel[k] for k in range(len(rel))]), dev)
         result["eth"] = eth
 
@@ -4086,11 +4119,285 @@ def entry_phase(card):
         result.update(experiments=dict(wall_s=wall_x, launches=run_lx, files=files),
                       bunny=dict(wall_s=wall_b, launches=run_lb))
     print("  entry phase: " + json.dumps(result, default=float))
-    return launches
+    return launches, graph_case
 
 
-def record(rows_eth, launches_eth, rows, launches) -> None:
-    """Phase 11: the kernels line. Each kd kernel's time, bound and plain
+# ---------------------------------------------------------------------------
+# Phase 11: the multi-device path (per-rank workers sharing the card)
+# ---------------------------------------------------------------------------
+
+MD_GT_STRIDE = 64            # every 64th source row is a ground-truth row
+MD_PADDING_PAIRS = 2
+MD_PADDING_STRIDE = 1426     # 365,056 / 1,426 = 256 source rows: one shard of real rows
+MD_RANKS_TIMEOUT_S = 240
+MD_T_GAP_M = 1e-5            # mean translation error within 0.01 mm of the unsharded run's
+MD_KERNELS = ("box_topk", "kd_block_search", "visited_search")
+
+
+def _mean_t_err(poses):
+    poses = np.asarray(poses, np.float64)
+    return float(np.mean([np.abs((poses[i] @ eth_true_pose(i).astype(np.float64))[:3, 3]).max()
+                          for i in range(len(poses))]))
+
+
+def _run_world(world, root, backend, label, device=None):
+    """The port's per-rank worker (``multihost_rehearsal``) on every case of
+    ``root``: ``world`` processes on this card; returns each rank's summary
+    (wall, launches, collectives per case). A rank's nonzero exit or
+    overrun fails the phase."""
+    from icp_variants_tpu_torch.scripts import multihost_rehearsal as rehearsal
+
+    t0 = time.perf_counter()
+    procs = rehearsal.start_ranks(world, f"file://{root}/rdzv", root, cases=root,
+                                  backend=backend, device=device)
+    try:
+        outs = rehearsal.join_ranks(procs, root, MD_RANKS_TIMEOUT_S)
+    except RuntimeError as exc:
+        raise Failure(f"{label}: {exc}") from exc
+    wall = time.perf_counter() - t0
+    check(all("CASES OK" in o for o in outs),
+          f"{label}: {world} rank(s), backend {backend or ('gloo' if device else 'nccl')}, "
+          "every case run "
+          f"({wall:.1f} s with start-up)")
+    return [json.loads((root / "out" / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def _rank_results(root, name, world):
+    return [dict(np.load(root / "out" / f"{name}.rank{r}.npz")) for r in range(world)]
+
+
+def multidevice_phase(eth, graph, card):
+    """Phase 11 on the card: the port's multi-device path
+    (``parallel/sharded_icp``, ``parallel/distributed``,
+    ``pose_graph.refine_sharded``) driven by its per-rank worker
+    (``scripts/multihost_rehearsal.py``), the ranks separate processes on
+    the one card, on phase 3's data and draws (the ETH headline's exact
+    arm, 16 pairs x 365,056 rows x 50 iterations) written as numpy under a
+    temporary directory. Returns each kernel's launches per case and rank.
+    Raises :class:`Failure` on a failed check."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from icp_variants_tpu_torch.core import se3
+    from icp_variants_tpu_torch.core.cloud import Cloud
+    from icp_variants_tpu_torch.ops import kdtree, selection
+    from icp_variants_tpu_torch.parallel import sharded_icp
+    from icp_variants_tpu_torch.pipeline import icp
+    from icp_variants_tpu_torch.pipeline.config import Selection
+    from icp_variants_tpu_torch.scripts import multihost_rehearsal as rehearsal
+
+    print(f"phase 11: the multi-device path, ranks as processes sharing one card [{card}]",
+          flush=True)
+    sources, kd = eth["sources"], eth["kd"]
+    dev = sources.points.device
+    targets = icp.stack_clouds(eth["targets_host"]).to(dev)
+    b, cap = sources.valid.shape
+    cfg = eth_config()
+
+    # ---- phase 3's draws, its unsharded run, the ground-truth rows -------
+    k_cap = icp._compact_capacity(cap, SELECTION_P)
+    gen = torch.Generator(device=dev).manual_seed(eth["exact_seed"])
+    draws = [selection.bernoulli_gap_indices(gen, SELECTION_P, 1, cap, k_cap, batch=(b,),
+                                             device=dev) for _ in range(N_ITERATIONS)]
+    sel = torch.stack([d[0] for d in draws], dim=1)
+    inr = torch.stack([d[1] for d in draws], dim=1)
+    inv = torch.from_numpy(np.stack([np.linalg.inv(eth_true_pose(i)) for i in range(b)])
+                           .astype(np.float32)).to(dev)
+    gt_src = sources.points[:, ::MD_GT_STRIDE].contiguous()
+    gt = dict(gt_source_points=gt_src, gt_target_points=se3.transform_points(gt_src, inv),
+              gt_valid=sources.valid[:, ::MD_GT_STRIDE].contiguous())
+    t0 = time.perf_counter()
+    ref = icp.run_icp_batch(cfg, sources, targets, kd_indexes=kd, selected=(sel, inr),
+                            run_benchmark=True, device=dev, **gt)
+    ref.pose.cpu()
+    ref_s = time.perf_counter() - t0
+    phase3 = eth["exact"]
+    check(torch.equal(ref.pose, phase3.pose)
+          and torch.equal(ref.trace.num_matches, phase3.trace.num_matches),
+          "phase 3's draws replayed through selected=: the unsharded run equals phase 3's "
+          "exact-arm run bit for bit (poses, match counts)")
+    ref_np = {k: v.cpu().numpy() for k, v in (("pose", ref.pose), ("rmse", ref.trace.rmse),
+                                              ("benchmark", ref.trace.benchmark),
+                                              ("num_matches", ref.trace.num_matches))}
+
+    # The padding case: 256 source rows a pair over two points shards, so
+    # the second shard is padding only; SELECT_ALL on the exact arm.
+    cfg_all = cfg.replace(selection=Selection.ALL)
+    small = Cloud(*(f[:MD_PADDING_PAIRS, ::MD_PADDING_STRIDE].contiguous() for f in sources))
+    small_tgt = Cloud(*(f[:MD_PADDING_PAIRS] for f in targets))
+    small_kd = kdtree.KDIndex(*(None if f is None else f[:MD_PADDING_PAIRS] for f in kd))
+    ref_small = icp.run_icp_batch(cfg_all, small, small_tgt, kd_indexes=small_kd, device=dev)
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_md_"))
+    try:
+        t0 = time.perf_counter()
+
+        def host(x):
+            return x.detach().cpu().numpy()
+
+        one = sharded_icp.shard_draws(sel.cpu(), inr.cpu(), 1, cap, SELECTION_P)
+        two = sharded_icp.shard_draws(sel.cpu(), inr.cpu(), 2, cap // 2, SELECTION_P)
+        check(torch.equal(one[0][:, 0], sel.cpu()) and torch.equal(one[1][:, 0], inr.cpu()),
+              "shard_draws over one shard returns the run's draws unchanged")
+        arrays = {f"src_{f}": host(x) for f, x in zip(Cloud._fields, sources)}
+        arrays.update({f"tgt_{f}": host(x) for f, x in zip(Cloud._fields, targets)})
+        arrays.update({f"kd_{f}": host(x) for f, x in zip(kdtree.KDIndex._fields, kd)
+                       if x is not None})
+        arrays.update(gt_src=host(gt["gt_source_points"]), gt_tgt=host(gt["gt_target_points"]),
+                      gt_valid=host(gt["gt_valid"]), one_rows=host(one[0]),
+                      one_flags=host(one[1]), two_rows=host(two[0]), two_flags=host(two[1]))
+        np.savez(tmp / "eth.npz", **arrays)
+        small_arrays = {f"src_{f}": host(x) for f, x in zip(Cloud._fields, small)}
+        small_arrays.update({f"tgt_{f}": host(x) for f, x in zip(Cloud._fields, small_tgt)})
+        small_arrays.update({f"kd_{f}": host(x) for f, x in zip(kdtree.KDIndex._fields, small_kd)
+                             if x is not None})
+        np.savez(tmp / "small.npz", **small_arrays)
+        np.savez(tmp / "graph.npz", **graph["arrays"])
+        del arrays, small_arrays
+        write_s = time.perf_counter() - t0
+        w1, w2 = tmp / "world1", tmp / "world2"
+        w1.mkdir()
+        w2.mkdir()
+        common = dict(kind="icp", data="../eth.npz", cfg=cfg, run_benchmark=True, warmup=True)
+        rehearsal.write_spec(w1, [dict(common, name="world1", points_per_pair=1,
+                                       selected="one")])
+        rehearsal.write_spec(w2, [
+            dict(common, name="points2", points_per_pair=2, selected="two"),
+            dict(common, name="pairs2", points_per_pair=1, selected="one"),
+            dict(name="padding", kind="icp", data="../small.npz", cfg=cfg_all,
+                 points_per_pair=2, padding_check=True),
+            dict(name="refine", kind="refine", data="../graph.npz", points_per_pair=1,
+                 n_iterations=10, warmup=True)])
+        print(f"  unsharded run {ref_s:.3f} s; the inputs written as numpy in {write_s:.1f} s "
+              f"({sum(f.stat().st_size for f in tmp.glob('*.npz')) / 1e9:.2f} GB)", flush=True)
+
+        # The workers' device: the card (nccl by default), or the CPU for a
+        # rehearsal of this phase on small data.
+        on_cpu = "cpu" if dev.type == "cpu" else None
+        summary1 = _run_world(1, w1, None, "world of one", on_cpu)
+        summary2 = _run_world(2, w2, "gloo", "world of two", on_cpu)
+        res1 = _rank_results(w1, "world1", 1)[0]
+        res_points = _rank_results(w2, "points2", 2)
+        res_pairs = _rank_results(w2, "pairs2", 2)
+        res_pad = _rank_results(w2, "padding", 2)
+        res_refine = _rank_results(w2, "refine", 2)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- case 1: a world of one, nccl, mesh 1 x 1 ------------------------
+    check(all(np.array_equal(res1[k], ref_np[k]) for k in ref_np),
+          "world of one (nccl, mesh 1 x 1): poses, RMSE, benchmark and match counts equal the "
+          "unsharded run bit for bit")
+
+    # ---- case 2: two ranks, mesh pairs 1 x points 2 ----------------------
+    check(np.array_equal(res_points[0]["pose"], res_points[1]["pose"])
+          and all(np.array_equal(res_points[0][k], res_points[1][k])
+                  for k in ("rmse", "benchmark", "num_matches")),
+          "points 2: both ranks hold the same poses and traces bit for bit")
+    pts = res_points[0]
+    nm_gap = int(np.abs(pts["num_matches"] - ref_np["num_matches"]).max())
+    pose_gap = float(np.abs(pts["pose"] - ref_np["pose"]).max())
+    t_sharded, t_ref = _mean_t_err(pts["pose"]), _mean_t_err(ref_np["pose"])
+    print(f"  points 2: {b} pairs x {cap // 2} source rows a rank; iteration 0's match counts "
+          f"{pts['num_matches'][:, 0].tolist()}; largest match-count gap over all iterations "
+          f"{nm_gap}; largest pose entry gap {pose_gap:.3e}; mean t_err {t_sharded * 1e3:.6f} mm "
+          f"against the unsharded {t_ref * 1e3:.6f} mm")
+    check(np.array_equal(pts["num_matches"][:, 0], ref_np["num_matches"][:, 0]),
+          "points 2: iteration 0's match counts equal the unsharded run's for every pair")
+    check(np.allclose(pts["pose"], ref_np["pose"], rtol=1e-3, atol=5e-5),
+          "points 2: final poses within rtol 1e-3 / atol 5e-5 of the unsharded run")
+    check(abs(t_sharded - t_ref) <= MD_T_GAP_M,
+          "points 2: mean translation error within 0.01 mm of the unsharded run's")
+
+    # ---- case 3: two ranks, mesh pairs 2 x points 1 ----------------------
+    pairs_np = {k: np.concatenate([r[k] for r in res_pairs]) for k in ref_np}
+    check([tuple(r["pairs"]) for r in res_pairs] == [(0, b // 2), (b // 2, b)],
+          "pairs 2: each rank holds 8 pairs")
+    same = {k: bool(np.array_equal(pairs_np[k], ref_np[k])) for k in ref_np}
+    t_pairs = _mean_t_err(pairs_np["pose"])
+    print(f"  pairs 2: bit for bit the unsharded run's: {same}; largest pose entry gap "
+          f"{float(np.abs(pairs_np['pose'] - ref_np['pose']).max()):.3e}, largest match-count "
+          f"gap {int(np.abs(pairs_np['num_matches'] - ref_np['num_matches']).max())}, mean t_err "
+          f"{t_pairs * 1e3:.6f} mm")
+    # Not bit for bit: torch.sum over the query rows (se3.masked_mean's)
+    # reduces in another order at 8 pairs than at 16 on the card
+    # (icp_variants_tpu_torch/scripts/batch_parting.py), so case 2's gates.
+    check(np.array_equal(pairs_np["num_matches"][:, 0], ref_np["num_matches"][:, 0])
+          and np.allclose(pairs_np["pose"], ref_np["pose"], rtol=1e-3, atol=5e-5)
+          and abs(t_pairs - t_ref) <= MD_T_GAP_M,
+          "pairs 2: iteration 0's match counts equal the unsharded run's, poses within rtol "
+          "1e-3 / atol 5e-5, mean translation error within 0.01 mm")
+
+    # ---- case 4: the all-padding shard -----------------------------------
+    info_pad = [s["padding"] for s in summary2]
+    pad_rank = [r for r, s in enumerate(summary2) if s["padding"]["padding"] is not None]
+    check(pad_rank == [1], "padding: the second points shard holds padding only")
+    run_l = info_pad[1]["launches"]
+    direct = info_pad[1]["padding"]
+    print(f"  padding: rank 1's run launches {run_l}; its {direct['rows']} masked queries "
+          f"through match_kd: {direct['matched']} matched, {direct['not_minus_one']} not -1, "
+          f"launches {direct['launches']}")
+    check(all(run_l.get(k, 0) >= cfg_all.n_iterations for k in MD_KERNELS)
+          and all(direct["launches"].get(k, 0) >= 1 for k in MD_KERNELS)
+          and direct["matched"] == 0 and direct["not_minus_one"] == 0,
+          "padding: box_topk, kd_block_search and visited_search launch on the all-padding "
+          "shard every iteration and return misses (-1) on all its rows")
+    check(np.array_equal(res_pad[0]["num_matches"], ref_small.trace.num_matches.cpu().numpy())
+          and np.allclose(res_pad[0]["pose"], ref_small.pose.cpu().numpy(), rtol=1e-3, atol=5e-5),
+          "padding: match counts equal the unsharded run of the 256 rows, poses within rtol "
+          "1e-3 / atol 5e-5")
+
+    # ---- case 5: refine_sharded on two ranks -----------------------------
+    check(np.array_equal(res_refine[0]["pose"], res_refine[1]["pose"]),
+          "refine_sharded: both ranks hold the same poses bit for bit")
+    refined = res_refine[0]["pose"].astype(np.float64)
+    gap_single = float(np.abs(refined - graph["refined"]).max())
+    gap_t = float(np.abs(refined[:, :3, 3] - graph["f64"][:, :3, 3]).max())
+    gap_r = max(float(np.linalg.norm(_so3_log64(a[:3, :3].T @ c[:3, :3])))
+                for a, c in zip(refined, graph["f64"]))
+    print(f"  refine_sharded (2 ranks, {len(graph['arrays']['edge_i'])} edges): "
+          f"{summary2[0]['refine']['wall_s']:.3f} s after a warm-up call, "
+          f"{summary2[0]['refine']['collectives'].get('calls', 0)} collectives; against the "
+          "single-device refine "
+          f"{gap_single:.3e}; against the float64 solve {gap_t:.3e} m, {gap_r:.3e} rad")
+    check(np.allclose(refined, graph["refined"], rtol=1e-4, atol=1e-5),
+          "refine_sharded: within rtol 1e-4 / atol 1e-5 of the single-device refine")
+    check(gap_t <= 1e-4 and gap_r <= 1e-4,
+          "refine_sharded: within 1e-4 m and 1e-4 rad of the float64 Gauss-Newton (phase 10's "
+          "gate)")
+
+    # ---- what the ranks did ------------------------------------------------
+    summaries = {"world1": summary1, "points2": summary2, "pairs2": summary2,
+                 "padding": summary2}
+    sharded = collections.defaultdict(dict)
+    for case, summ in summaries.items():
+        for r, s in enumerate(summ):
+            c = s[case]
+            for name in MD_KERNELS:
+                sharded[name][f"{case} rank {r}"] = c["launches"].get(name, 0)
+            calls = c["collectives"].get("calls", 0)
+            print(f"  {case} rank {r} (coords {c['coords']}, pairs {c['pairs']}): "
+                  f"{c['wall_s']:.3f} s, launches {c['launches']}, collectives {calls} "
+                  f"({calls / c['iterations']:.1f} an iteration, "
+                  f"{c['collectives'].get('bytes', 0)} bytes)", flush=True)
+    for case in ("points2", "pairs2"):
+        wall = max(s[case]["wall_s"] for s in summary2)
+        print(f"  {case}: two ranks sharing one card: not a scaling figure: {wall:.3f} s, "
+              f"{b / wall:.4f} pairs/s [{card}]; one rank, unsharded: {ref_s:.3f} s")
+    for name in MD_KERNELS:
+        least = 1 if name == "visited_search" else N_ITERATIONS
+        check(all(sharded[name][f"{case} rank {r}"] >= least
+                  for case in ("world1", "points2", "pairs2")
+                  for r in range(len(summaries[case]))),
+              f"{name}: launched >= {least} times on every rank of every sharded ETH run")
+    return dict(sharded)
+
+
+def record(rows_eth, launches_eth, rows, launches, sharded) -> None:
+    """Phase 12: the kernels line. Each kd kernel's time, bound and plain
     time are at the colour path's full shapes (D = 6; the plain version in
     windows of rows, visited_search's on the live rows only), its ETH
     numbers (D = 3, full shapes) under ``eth``, visited_search's at the
@@ -4107,11 +4414,13 @@ def record(rows_eth, launches_eth, rows, launches) -> None:
     decomposition's shapes) under ``probe``; visited_ablate's at the JAX
     ablation script's shapes, the full mode's at the top and every mode's
     under ``modes``. Launches are summed over every path's main runs
-    (dense_nn_search's on the profile path); pruned_nn_search and the pose
+    (dense_nn_search's on the profile path), phase 11's sharded runs
+    included, which are also listed by case and rank under ``sharded``
+    (``sharded``: each kernel's counts there); pruned_nn_search and the pose
     mode run on no pipeline path, and their launches are phase 7's direct
     calls, read from the wrappers' counts, as are phase 8's for the
     ablation kernel and the probe."""
-    print("phase 11: the record", flush=True)
+    print("phase 12: the record", flush=True)
     sources_of = {
         "box_topk": ("icp_variants_tpu_torch/csrc/box_topk.cu",
                      "icp_variants_tpu/ops/kdtree.py:501"),
@@ -4159,13 +4468,16 @@ def record(rows_eth, launches_eth, rows, launches) -> None:
             check(n_launch > 0, f"{name}: launched {n_launch} times by phase 7's direct calls "
                                 "(no pipeline path runs it)")
         else:
-            n_launch = launches_eth.get(name, 0) + launches.get(name, 0)
+            n_launch = (launches_eth.get(name, 0) + launches.get(name, 0)
+                        + sum(sharded.get(name, {}).values()))
             check(n_launch > 0, f"{name}: launched {n_launch} times on the main paths")
         entry = dict(
             name=name, route="cuda", source=src, replaces=replaces, launches=n_launch,
             max_abs_err=max(c["err"], e["err"] if e else 0.0), ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound"][0], bound_by=c["bound"][1],
             library_ms=None, shapes=c["shapes"], plain_on=c["plain_on"])
+        if name in sharded:
+            entry["sharded"] = sharded[name]
         if name in ("kd_block_search", "cached_block_search"):
             entry["shared_source"] = "icp_variants_tpu_torch/csrc/block_major.cuh"
         if name == "cached_block_search":

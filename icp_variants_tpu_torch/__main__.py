@@ -22,15 +22,20 @@ def _run_refine(args, cfg, res, eth) -> None:
     """`eth --refine`: pose-graph refinement over the sweep's sequential
     chain (+ optional odometry-proximity loop closures), reporting the
     odometry-vs-refined trajectory error against the CSV's composed GT
-    relative poses. Refines on the one device (the sharded refiner is not
-    ported)."""
+    relative poses. Uses the sharded CG refiner when more than one rank is
+    up (a launcher such as ``torchrun`` started this command on each)."""
     import numpy as np
     import torch
 
     from icp_variants_tpu_torch.data.loaders import ETHDataLoader
+    from icp_variants_tpu_torch.parallel import distributed
     from icp_variants_tpu_torch.parallel import pose_graph as pg
 
-    odometry, refined, graph = eth.refine_trajectory(res, device=args.device)
+    mesh = None
+    if distributed.initialize(device=args.device) and distributed.process_count() > 1:
+        mesh = distributed.global_mesh(device=args.device)
+        print(f"refine: sharded CG over {distributed.process_count()} ranks")
+    odometry, refined, graph = eth.refine_trajectory(res, mesh=mesh, device=args.device)
     loader = ETHDataLoader(args.pose_csv, downsample=args.downsample, device=args.device)
     if args.loop_closure_radius > 0:
         # One capacity across the closure pairs, sized over the rows this
@@ -46,7 +51,7 @@ def _run_refine(args, cfg, res, eth) -> None:
             print(f"refine: registering {len(cands)} loop closures: {cands}")
             edges = eth.register_closures(loader, cands, cfg, odometry)
             odometry, refined, graph = eth.refine_trajectory(
-                res, extra_edges=edges, device=args.device)
+                res, extra_edges=edges, mesh=mesh, device=args.device)
         else:
             print("refine: no loop-closure candidates within radius")
     # GT trajectory convention follows the CSV flavor (ETHDataLoader.h):

@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from icp_variants_tpu_torch.parallel.distributed import psum
+
 ANGLE_THRESHOLD_RAD = 60.0 * math.pi / 180.0
 TRIM_BINS = 1024
 
@@ -32,24 +34,28 @@ def normal_angle_mask(
     return valid & ~reject
 
 
-def quantile_bin(d2, valid, q: float, max_d2: float):
+def quantile_bin(d2, valid, q: float, max_d2: float, group=None):
     """Histogram quantile over the last axis: ``(bin_idx, cut, bin_w)``
     where ``cut`` is the first of TRIM_BINS equal bins over [0, max_d2]
-    whose cumulative valid count reaches ``ceil(q * n)``."""
+    whose cumulative valid count reaches ``ceil(q * n)``. With ``group`` the
+    last axis is split over its ranks: the (..., TRIM_BINS) int32 counts
+    are summed across them, so the cut is bit-identical on every rank."""
     nbins = TRIM_BINS
     bin_w = max_d2 / nbins
     idx = torch.clamp((d2 * (nbins / max_d2)).to(torch.int32), 0, nbins - 1)
     bins = torch.arange(nbins, dtype=torch.int32, device=d2.device)
     cum = torch.sum(
         (idx[..., :, None] <= bins) & valid[..., :, None], dim=-2, dtype=torch.int32)
+    cum = psum(cum, group)
     n = cum[..., -1]
     k = torch.ceil(q * n.float()).to(torch.int32)
     cut = torch.argmax((cum >= k[..., None]).to(torch.uint8), dim=-1).to(torch.int32)
     return idx, cut, bin_w
 
 
-def trimmed_mask(d2, valid, ratio: float, max_d2: float) -> torch.Tensor:
+def trimmed_mask(d2, valid, ratio: float, max_d2: float, group=None) -> torch.Tensor:
     """Trimmed-ICP rejection (extension): keep the best ``ratio`` fraction
-    of valid matches by squared distance; ties at the cut bin are kept."""
-    idx, cut, _ = quantile_bin(d2, valid, ratio, max_d2)
+    of valid matches by squared distance; ties at the cut bin are kept.
+    ``group``: see :func:`quantile_bin`."""
+    idx, cut, _ = quantile_bin(d2, valid, ratio, max_d2, group=group)
     return valid & (idx <= cut[..., None])

@@ -49,34 +49,35 @@ def _normals_weight(src_n, tgt_n) -> torch.Tensor:
     return torch.where(_finite(src_n, tgt_n), torch.sum(src_n * tgt_n, dim=-1), 0.0)
 
 
-def _robust_center_scale(d2, valid, max_d2):
+def _robust_center_scale(d2, valid, max_d2, group=None):
     """Robust (median, 1.4826 * MAD) of the residual magnitudes from two
-    histogram quantiles; floored at one bin width."""
+    histogram quantiles; floored at one bin width. With ``group`` both
+    histograms sum over its ranks, so every rank weighs against one scale."""
     from icp_variants_tpu_torch.ops import rejection
 
-    _, cut, bin_w = rejection.quantile_bin(d2, valid, 0.5, max_d2)
+    _, cut, bin_w = rejection.quantile_bin(d2, valid, 0.5, max_d2, group=group)
     med = torch.sqrt((cut.float() + 0.5) * bin_w)
     dev2 = (torch.sqrt(torch.clamp_min(d2, 0.0)) - med[..., None]) ** 2
-    _, cut_dev, _ = rejection.quantile_bin(dev2, valid, 0.5, max_d2)
+    _, cut_dev, _ = rejection.quantile_bin(dev2, valid, 0.5, max_d2, group=group)
     mad = torch.sqrt((cut_dev.float() + 0.5) * bin_w)
     sigma = 1.4826 * torch.clamp_min(mad, bin_w ** 0.5)
     return med, sigma
 
 
-def _huber_weight(src, tgt, valid, max_d2) -> torch.Tensor:
+def _huber_weight(src, tgt, valid, max_d2, group=None) -> torch.Tensor:
     """Huber IRLS weight, k = 1.345 sigma (extension)."""
     d2 = torch.sum((src - tgt) ** 2, dim=-1)
     r = torch.sqrt(d2)
-    _, sigma = _robust_center_scale(d2, valid, max_d2)
+    _, sigma = _robust_center_scale(d2, valid, max_d2, group=group)
     w = torch.clamp(1.345 * sigma[..., None] / torch.clamp_min(r, 1e-30), max=1.0)
     return torch.where(_finite(src, tgt), w, 0.0)
 
 
-def _tukey_weight(src, tgt, valid, max_d2) -> torch.Tensor:
+def _tukey_weight(src, tgt, valid, max_d2, group=None) -> torch.Tensor:
     """Tukey biweight IRLS weight, c = 4.685 sigma (extension)."""
     d2 = torch.sum((src - tgt) ** 2, dim=-1)
     r = torch.sqrt(d2)
-    _, sigma = _robust_center_scale(d2, valid, max_d2)
+    _, sigma = _robust_center_scale(d2, valid, max_d2, group=group)
     u = torch.clamp(r / (4.685 * sigma[..., None]), 0.0, 1.0)
     return torch.where(_finite(src, tgt), (1.0 - u * u) ** 2, 0.0)
 
@@ -87,8 +88,11 @@ def _colors_weight(src_c, tgt_c) -> torch.Tensor:
     return 1.0 - torch.sum(diff * diff, dim=-1) / MAX_COLOR_DIFFERENCE
 
 
-def apply_weights(method: Weighting, m: MatchArrays, max_distance: float) -> torch.Tensor:
-    """Per-match weights for the configured method (not masked)."""
+def apply_weights(method: Weighting, m: MatchArrays, max_distance: float,
+                  group=None) -> torch.Tensor:
+    """Per-match weights for the configured method (not masked). ``group``:
+    the ranks the match axis is split over; the robust methods sum their
+    scale histograms across them (the others are pointwise)."""
     if method == Weighting.CONSTANT:
         return torch.ones(m.valid.shape, dtype=torch.float32, device=m.valid.device)
     if method == Weighting.DISTANCES:
@@ -99,7 +103,7 @@ def apply_weights(method: Weighting, m: MatchArrays, max_distance: float) -> tor
         w = _distances_weight(m.src_points, m.tgt_points, max_distance)
         return w * _colors_weight(m.src_colors, m.tgt_colors)
     if method == Weighting.HUBER:
-        return _huber_weight(m.src_points, m.tgt_points, m.valid, max_distance)
+        return _huber_weight(m.src_points, m.tgt_points, m.valid, max_distance, group=group)
     if method == Weighting.TUKEY:
-        return _tukey_weight(m.src_points, m.tgt_points, m.valid, max_distance)
+        return _tukey_weight(m.src_points, m.tgt_points, m.valid, max_distance, group=group)
     raise ValueError(f"unknown weighting method {method}")

@@ -1,9 +1,9 @@
-"""Pose-graph refinement over a scan sequence, on one device.
+"""Pose-graph refinement over a scan sequence.
 
-Port of ``icp_variants_tpu.parallel.pose_graph`` without its mesh: the
-pairwise ICP results become edges of a pose graph over absolute scan
-poses, jointly refined by Gauss-Newton. The sharded refiner
-(``refine_sharded``, the ``axis_name`` reductions) is not ported.
+Port of ``icp_variants_tpu.parallel.pose_graph``: the pairwise ICP results
+become edges of a pose graph over absolute scan poses, jointly refined by
+Gauss-Newton. :func:`refine_sharded` splits the edge set over the ranks of
+a mesh's ``pairs`` axis and sums the normal equations across them.
 
 Conventions
 -----------
@@ -25,6 +25,7 @@ import torch
 
 from icp_variants_tpu_torch.core import se3
 from icp_variants_tpu_torch.core.device import resolve_device
+from icp_variants_tpu_torch.parallel.distributed import Mesh, psum
 
 
 class PoseGraph(NamedTuple):
@@ -91,6 +92,7 @@ def refine(
     n_iterations: int = 10,
     damping: float = 1e-6,
     prior_weight: float = 1e4,
+    group=None,
     n_cg: int = 100,
 ) -> torch.Tensor:
     """Gauss-Newton pose-graph refinement; returns the refined (V, 4, 4)
@@ -99,7 +101,12 @@ def refine(
     The normal equations are assembled from the per-edge 6x6 blocks
     (:func:`_edge_blocks`): densely for ``V <= DENSE_MAX_POSES``,
     matrix-free by block-Jacobi-preconditioned conjugate gradients
-    (``n_cg`` iterations) beyond."""
+    (``n_cg`` iterations) beyond.
+
+    With ``group``, ``graph`` holds this rank's share of the edges (zero
+    weights pad it) and every reduction over edges sums across the group:
+    the gradient, the dense H or the preconditioner's blocks, and each CG
+    product; the pose update then runs the same on every rank."""
     dev = graph.rel_poses.device
     poses = torch.as_tensor(base_poses, dtype=torch.float32).to(dev)
     v = poses.shape[0]
@@ -109,28 +116,29 @@ def refine(
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
     for _ in range(n_iterations):
         r, Ji, Jj = _edge_blocks(poses, graph)
-        g = (_scatter_rows(v, ei, torch.einsum("eab,ea->eb", Ji, r))
-             + _scatter_rows(v, ej, torch.einsum("eab,ea->eb", Jj, r)))
+        g = psum(_scatter_rows(v, ei, torch.einsum("eab,ea->eb", Ji, r))
+                 + _scatter_rows(v, ej, torch.einsum("eab,ea->eb", Jj, r)), group)
         if v <= DENSE_MAX_POSES:
             H = torch.zeros((v * v, 6, 6), dtype=torch.float32, device=dev)
             H.index_add_(0, ei * v + ei, torch.einsum("eab,eac->ebc", Ji, Ji))
             H.index_add_(0, ei * v + ej, torch.einsum("eab,eac->ebc", Ji, Jj))
             H.index_add_(0, ej * v + ei, torch.einsum("eab,eac->ebc", Jj, Ji))
             H.index_add_(0, ej * v + ej, torch.einsum("eab,eac->ebc", Jj, Jj))
+            H = psum(H, group)
             jtj = (H.reshape(v, v, 6, 6).permute(0, 2, 1, 3).reshape(6 * v, 6 * v)
                    + torch.diag(prior_row.expand(v, 6).reshape(-1))
                    + damping * torch.eye(6 * v, dtype=torch.float32, device=dev))
             dx = -torch.linalg.solve(jtj, g.reshape(-1)).reshape(v, 6)
         else:
             # Block diagonal of H (V, 6, 6) for the Jacobi preconditioner.
-            D = (_scatter_rows(v, ei, torch.einsum("eab,eac->ebc", Ji, Ji))
-                 + _scatter_rows(v, ej, torch.einsum("eab,eac->ebc", Jj, Jj)))
+            D = psum(_scatter_rows(v, ei, torch.einsum("eab,eac->ebc", Ji, Ji))
+                     + _scatter_rows(v, ej, torch.einsum("eab,eac->ebc", Jj, Jj)), group)
             D_inv = torch.linalg.inv(D + eye6[None] * (damping + prior_row)[:, :, None])
 
             def matvec(xv):
                 y = torch.einsum("eab,eb->ea", Ji, xv[ei]) + torch.einsum("eab,eb->ea", Jj, xv[ej])
-                out = (_scatter_rows(v, ei, torch.einsum("eab,ea->eb", Ji, y))
-                       + _scatter_rows(v, ej, torch.einsum("eab,ea->eb", Jj, y)))
+                out = psum(_scatter_rows(v, ei, torch.einsum("eab,ea->eb", Ji, y))
+                           + _scatter_rows(v, ej, torch.einsum("eab,ea->eb", Jj, y)), group)
                 return out + (damping + prior_row) * xv
 
             def precon(xv):
@@ -154,6 +162,35 @@ def refine(
             dx = x
         poses = se3.increment_to_matrix(dx) @ poses
     return poses
+
+
+def refine_sharded(base_poses, graph: PoseGraph, mesh: Mesh, *,
+                   n_iterations: int = 10) -> torch.Tensor:
+    """:func:`refine` with the edge set split over the mesh's ``pairs``
+    axis, its normal equations summed across it. Every rank passes the
+    whole graph and gets the whole refined (V, 4, 4) poses, on the mesh's
+    device. Edges are padded to a multiple of the axis size with
+    zero-weight identity edges."""
+    n_shards = mesh.size("pairs")
+    dev = mesh.device
+    e = graph.edge_i.shape[0]
+    pad = (-e) % n_shards
+    per = (e + pad) // n_shards
+    own = slice(mesh.coords["pairs"] * per, (mesh.coords["pairs"] + 1) * per)
+
+    def grow(x, fill):
+        x = torch.as_tensor(x).to(dev)
+        if pad:
+            x = torch.cat([x, fill.to(x.device, x.dtype).expand(pad, *x.shape[1:])])
+        return x[own]
+
+    local = PoseGraph(
+        edge_i=grow(graph.edge_i, torch.zeros(1)),
+        edge_j=grow(graph.edge_j, torch.zeros(1)),
+        rel_poses=grow(graph.rel_poses, torch.eye(4, device=dev)[None]),
+        weights=grow(graph.weights, torch.zeros(1)),
+    )
+    return refine(base_poses, local, n_iterations=n_iterations, group=mesh.group("pairs"))
 
 
 def sequential_graph(pair_poses: np.ndarray, weights: np.ndarray | None = None,

@@ -38,6 +38,7 @@ from icp_variants_tpu_torch.core import se3
 from icp_variants_tpu_torch.core.cloud import Cloud
 from icp_variants_tpu_torch.core.device import resolve_device
 from icp_variants_tpu_torch.ops import kdtree, knn, projective, rejection, selection, weighting
+from icp_variants_tpu_torch.parallel.distributed import psum, shard_seed
 from icp_variants_tpu_torch.pipeline import measure
 from icp_variants_tpu_torch.pipeline.config import (
     ICPConfig,
@@ -86,28 +87,30 @@ class ICPResult(NamedTuple):
     match_blocks: torch.Tensor | None = None
 
 
-def _solve(cfg: ICPConfig, m: weighting.MatchArrays, w: torch.Tensor) -> torch.Tensor:
+def _solve(cfg: ICPConfig, m: weighting.MatchArrays, w: torch.Tensor,
+           group=None) -> torch.Tensor:
     """Stages 5+6 (metric + minimizer): the (B, 4, 4) increment applied
-    from the left."""
+    from the left. With ``group`` the match axis is split over its ranks
+    and the solvers sum their reductions across them."""
     if cfg.minimizer == Minimizer.NONLINEAR_LM:
         return gauss_newton.estimate_pose_lm(
             cfg.metric, m.src_points, m.tgt_points, m.src_normals, m.tgt_normals, w, m.valid,
             max_iterations=cfg.lm_max_inner_iterations,
-            function_tolerance=cfg.lm_function_tolerance)
+            function_tolerance=cfg.lm_function_tolerance, group=group)
     if cfg.metric == Metric.POINT_TO_POINT:
         # Robust weights zero out outliers; the reference's unweighted-mean
         # quirk would feed them into the translation (solvers/procrustes.py).
         return procrustes.estimate_pose_point_to_point(
             m.src_points, m.tgt_points, w, m.valid,
-            weighted_means=cfg.weighting in (Weighting.HUBER, Weighting.TUKEY))
+            weighted_means=cfg.weighting in (Weighting.HUBER, Weighting.TUKEY), group=group)
     if cfg.metric == Metric.POINT_TO_PLANE:
         return linear.estimate_pose_point_to_plane(
-            m.src_points, m.tgt_points, m.tgt_normals, w, m.valid)
+            m.src_points, m.tgt_points, m.tgt_normals, w, m.valid, group=group)
     if cfg.metric == Metric.GICP:
         return linear.estimate_pose_gicp(
-            m.src_points, m.tgt_points, m.src_normals, m.tgt_normals, w, m.valid)
+            m.src_points, m.tgt_points, m.src_normals, m.tgt_normals, w, m.valid, group=group)
     return linear.estimate_pose_symmetric(
-        m.src_points, m.tgt_points, m.src_normals, m.tgt_normals, w, m.valid)
+        m.src_points, m.tgt_points, m.src_normals, m.tgt_normals, w, m.valid, group=group)
 
 
 def _compact_capacity(n: int, proba: float) -> int:
@@ -211,10 +214,12 @@ def _granule_update(cache: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
     return torch.where(pos >= 0, last.to(cache.dtype), cache)
 
 
-def _select(cfg, source, src_table, stride, generator, selected, t):
-    """Stage 1. Returns the (possibly compacted) query cloud and its mask."""
+def _select(cfg, source, src_table, stride, generator, selected, t, index_offset):
+    """Stage 1. Returns the (possibly compacted) query cloud and its mask.
+    ``index_offset`` is the global number of the source's first row (a
+    points shard's), on which the stride lattice is laid."""
     b, cap = source.valid.shape
-    base_mask = (cloud_lib.coarse_stride_mask(source, stride)
+    base_mask = (cloud_lib.coarse_stride_mask(source, stride, index_offset)
                  if cfg.multi_resolution else source.valid)
     if cfg.selection == Selection.RANDOM and cfg.compact_queries:
         if selected is not None:
@@ -223,7 +228,7 @@ def _select(cfg, source, src_table, stride, generator, selected, t):
             k_cap = _compact_capacity(cap, cfg.selection_proba)
             sel_idx, in_range = selection.bernoulli_gap_indices(
                 generator, cfg.selection_proba,
-                stride if cfg.multi_resolution else 1, cap, k_cap,
+                stride if cfg.multi_resolution else 1, cap, k_cap, index_offset,
                 batch=(b,), device=source.points.device)
         return _compact_cloud(
             source, src_table, sel_idx, in_range, _needs_colors(cfg),
@@ -245,12 +250,14 @@ def _select(cfg, source, src_table, stride, generator, selected, t):
     return source, selection.select_all(base_mask)
 
 
-def _queries(cfg, source, src_table, pose, stride, generator, selected, t):
+def _queries(cfg, source, src_table, pose, stride, generator, selected, t, index_offset=0):
     """Stage 1 and the transform (ICPOptimizer.h:251-252): ``(source,
     sel_mask, src_pts)``, the (possibly compacted) query cloud, its mask and
     its points under ``pose``, masked queries pinned to the first valid one
-    so they keep query tiles spatially tight."""
-    source, sel_mask = _select(cfg, source, src_table, stride, generator, selected, t)
+    so they keep query tiles spatially tight (to row 0 where none is: a
+    points shard of padding only)."""
+    source, sel_mask = _select(cfg, source, src_table, stride, generator, selected, t,
+                               index_offset)
     src_pts = se3.transform_points(source.points, pose)
     first = torch.argmax(sel_mask.to(torch.uint8), dim=-1)
     anchor = knn.take_rows(src_pts, first[:, None])
@@ -319,12 +326,20 @@ def _iteration(
     seeded: bool,
     target_feats: torch.Tensor | None,
     stop_after: str | None = None,
+    group=None,
+    shard_index: int = 0,
 ):
     """One pipeline iteration over all B pairs; returns
     ``(new_pose, rmse, benchmark, num_matches, cache)``, each with leading
     B. ``cache`` / ``seeded`` are the membership or warm cache and
     ``target_feats`` the warm cache's feature table (see
     :func:`_match_kd_stage`).
+
+    ``group`` (None = one device): the ranks the source rows are split
+    over, this rank holding shard ``shard_index``. Its rows are numbered
+    from ``shard_index * capacity`` on the stride lattice and in the gap
+    draws; the weighting, rejection, solve and error reductions and the
+    match count sum across the group, so every rank gets the same pose.
 
     ``stop_after`` (one of :data:`PROBE_STAGES`) ends the iteration after
     that stage, as the JAX package's stage probes do: the pose comes back
@@ -334,7 +349,7 @@ def _iteration(
     if stop_after == "floor":
         return _probe_trace(pose, pose.sum((-2, -1)), cache)
     source, sel_mask, src_pts = _queries(cfg, source, src_table, pose, stride, generator,
-                                         selected, t)
+                                         selected, t, shard_index * source.capacity)
     src_nrm = se3.transform_normals(source.normals, pose)
     if stop_after == "selection":
         return _probe_trace(pose, src_pts.sum((-2, -1)) + src_nrm.sum((-2, -1)), cache)
@@ -375,27 +390,29 @@ def _iteration(
     )
 
     # --- stage 3: weighting; stage 4: rejection ------------------------------
-    w = weighting.apply_weights(cfg.weighting, m, cfg.max_distance)
+    w = weighting.apply_weights(cfg.weighting, m, cfg.max_distance, group=group)
     if stop_after == "weighting":
         return _probe_trace(pose, w.sum(-1) + m.tgt_points.sum((-2, -1)), cache)
     if cfg.rejection:
         m = m._replace(valid=rejection.normal_angle_mask(m.src_normals, m.tgt_normals, m.valid))
     if cfg.trim_ratio < 1.0:
-        m = m._replace(valid=rejection.trimmed_mask(d2, m.valid, cfg.trim_ratio, cfg.max_distance))
+        m = m._replace(valid=rejection.trimmed_mask(d2, m.valid, cfg.trim_ratio, cfg.max_distance,
+                                                    group=group))
     if stop_after == "rejection":
         return _probe_trace(
             pose, w.sum(-1) + m.valid.sum(-1) + m.tgt_points.sum((-2, -1)), cache)
 
     # --- stages 5+6: solve + left-multiplied pose update ---------------------
-    increment = _solve(cfg, m, w)
+    increment = _solve(cfg, m, w, group)
     new_pose = increment @ pose
     if stop_after == "solve":
         return _probe_trace(new_pose, increment.sum((-2, -1)), cache)
 
-    rmse = measure.rmse_alignment_error(new_pose, gt_src, gt_tgt, gt_valid)
-    bench = (measure.benchmark_error(new_pose, gt_src, gt_tgt, gt_valid)
+    # The ground-truth rows are split alongside the source's.
+    rmse = measure.rmse_alignment_error(new_pose, gt_src, gt_tgt, gt_valid, group=group)
+    bench = (measure.benchmark_error(new_pose, gt_src, gt_tgt, gt_valid, group=group)
              if run_benchmark else torch.zeros_like(rmse))
-    num_matches = torch.sum(m.valid, dim=-1, dtype=torch.int32)
+    num_matches = psum(torch.sum(m.valid, dim=-1, dtype=torch.int32), group)
     return new_pose, rmse, bench, num_matches, cache
 
 
@@ -432,6 +449,8 @@ def run_icp_batch(
     membership_seed=None,
     stop_after: str | None = None,
     device=None,
+    group=None,
+    shard_index: int = 0,
 ) -> ICPResult:
     """Register a batch of B scan pairs; every Cloud field carries the
     leading pair axis. The ETH sweep's data-parallel runner, and one level
@@ -459,7 +478,17 @@ def run_icp_batch(
     ``stop_after`` (one of :data:`PROBE_STAGES`) ends every iteration after
     that stage (the fused stage profiler's probes, :func:`_iteration`): the
     trace then holds the stage's checksum in ``rmse`` and zeros in
-    ``benchmark`` and ``num_matches``, and the results are no registration."""
+    ``benchmark`` and ``num_matches``, and the results are no registration.
+
+    ``group`` (None = one device) splits each pair's source rows, and the
+    ground-truth rows with them, over the ranks of a process group: the
+    clouds here are this rank's shard ``shard_index`` (targets and kd
+    indexes whole), and the reductions of every iteration sum across the
+    group (:func:`_iteration`), so each rank returns the same poses and
+    traces. The default generator's seed is then
+    ``distributed.shard_seed(seed, shard_index)``, and ``selected`` holds
+    this shard's own draws (its rows numbered from 0).
+    :mod:`icp_variants_tpu_torch.parallel.sharded_icp` lays the shards out."""
     if stop_after is not None and stop_after not in PROBE_STAGES:
         raise ValueError(f"stop_after must be None or one of {PROBE_STAGES}, got {stop_after!r}")
     if cfg.matching == Matching.PROJECTIVE and (
@@ -500,7 +529,8 @@ def run_icp_batch(
         selected = (torch.as_tensor(selected[0]).to(dev, torch.int32),
                     torch.as_tensor(selected[1]).to(dev, torch.bool))
     if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(seed)
+        generator = torch.Generator(device=dev).manual_seed(
+            seed if group is None else shard_seed(seed, shard_index))
 
     target_index = feats = None
     if cfg.matching == Matching.KNN:
@@ -535,10 +565,12 @@ def run_icp_batch(
             cfg, sources, targets, pose, stride, generator, selected, t,
             gt_src, gt_tgt, gtv, run_benchmark, target_index, kd_indexes,
             src_table, tgt_table, cache, seeded, feats, stop_after=stop_after,
+            group=group, shard_index=shard_index,
         )
         if aa is not None:
             # The trace holds the plain step's pose (the fixed-point
-            # evaluation); the carried pose is the mixed one.
+            # evaluation); the carried pose is the mixed one. The mixing is
+            # elementwise on the pose, the same on every rank of a group.
             aa, x_next = anderson.step(aa, anderson.pose_to_vec(pose),
                                        anderson.pose_to_vec(new_pose), cfg.anderson_m)
             new_pose = anderson.vec_to_pose(x_next)

@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from icp_variants_tpu_torch.core import se3
+from icp_variants_tpu_torch.parallel.distributed import psum, psum_many
 from icp_variants_tpu_torch.pipeline.config import Metric
 from icp_variants_tpu_torch.solvers import linear
 
@@ -97,6 +98,7 @@ def solve_lm(
     *,
     max_iterations: int = 10,
     function_tolerance: float = 1e-6,
+    group=None,
 ) -> LMResult:
     """At most ``max_iterations`` LM steps per pair; every input carries the
     pair axis B: (B, N, 3) points and normals, (B, N) weights and mask.
@@ -104,7 +106,13 @@ def solve_lm(
     Marquardt-Nielsen damping: solve ``(J^T J + mu diag(J^T J)) dx =
     -J^T r``; on a cost decrease accept and shrink mu, else reject and grow
     it. Once an accepted step's relative cost decrease falls below
-    ``function_tolerance`` (Ceres' option) the pair's state freezes."""
+    ``function_tolerance`` (Ceres' option) the pair's state freezes.
+
+    With ``group`` the N axis is split over its ranks: each cost and each
+    step's ``J^T J`` / ``J^T r`` are summed across them (after the
+    ``torch.func`` transforms return: a collective cannot run inside
+    them), so every rank solves the same damped system and takes the same
+    accept / reject branch."""
     res_fn = _residual_fn(metric)
     mask = valid.to(src.dtype)
     finite_sn = torch.isfinite(src_normals).all(dim=-1)
@@ -132,7 +140,7 @@ def solve_lm(
 
     def cost_of(x):
         r = residuals(x, data)
-        return 0.5 * torch.sum(r * r, dim=-1)
+        return psum(0.5 * torch.sum(r * r, dim=-1), group)
 
     b = src.shape[0]
     x = torch.zeros((b, 6), dtype=src.dtype, device=src.device)
@@ -145,8 +153,8 @@ def solve_lm(
     for _ in range(max_iterations):
         J = jacobian(x, data)                                  # (B, M, 6)
         r = residuals(x, data)                                 # (B, M)
-        jtj = J.transpose(-1, -2) @ J
-        g = (J.transpose(-1, -2) @ r[..., None])[..., 0]
+        jtj, g = psum_many((J.transpose(-1, -2) @ J,
+                            (J.transpose(-1, -2) @ r[..., None])[..., 0]), group)
         diag = torch.diag_embed(torch.clamp(torch.diagonal(jtj, dim1=-2, dim2=-1), min=1e-12))
         dx = -torch.linalg.solve_ex(jtj + mu[:, None, None] * diag, g[..., None])[0][..., 0]
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from icp_variants_tpu_torch.core import se3
+from icp_variants_tpu_torch.parallel.distributed import psum_many
 
 LAMBDA_POINT = 0.1       # ICPOptimizer.h:737
 LAMBDA_PLANE = 1.0       # ICPOptimizer.h:738
@@ -47,12 +48,16 @@ def _accumulate_normal_equations(
     rows: torch.Tensor,   # (..., N, R, 6)
     rhs: torch.Tensor,    # (..., N, R)
     row_w: torch.Tensor,  # (..., N, R) mask-and-lambda weights
+    group=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``A^T A`` and ``A^T b`` of the weighted rows (each residual weighted
-    by ``row_w^2``) as one batched product over the N * R rows."""
+    by ``row_w^2``) as one batched product over the N * R rows; with
+    ``group`` (N split over its ranks) summed across them."""
     wr = (rows * row_w[..., None]).flatten(-3, -2)
     wb = (rhs * row_w).flatten(-2, -1)
-    return wr.transpose(-1, -2) @ wr, (wr.transpose(-1, -2) @ wb[..., None])[..., 0]
+    ata, atb = psum_many(
+        (wr.transpose(-1, -2) @ wr, (wr.transpose(-1, -2) @ wb[..., None])[..., 0]), group)
+    return ata, atb
 
 
 def _point_row_specs(s: torch.Tensor, d: torch.Tensor, w):
@@ -67,11 +72,13 @@ def _point_row_specs(s: torch.Tensor, d: torch.Tensor, w):
     ]
 
 
-def _accumulate_normal_equations_soa(row_specs) -> tuple[torch.Tensor, torch.Tensor]:
+def _accumulate_normal_equations_soa(row_specs, group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """``ata[i, j] = sum_r sum_n w_r^2 a_i a_j`` and ``atb[i] = sum_r sum_n
     w_r^2 a_i b`` over row specs ``(cols, rhs, w)`` (see
     :func:`_point_row_specs`). Each spec becomes one (..., N, 6) Jacobian
-    and one batched product, instead of one reduction per entry."""
+    and one batched product, instead of one reduction per entry. With
+    ``group`` (N split over its ranks) the (..., 6, 6) and (..., 6) sums are
+    summed across them in one collective."""
     ata = atb = None
     for cols, rhs, w in row_specs:
         ref = rhs
@@ -85,6 +92,7 @@ def _accumulate_normal_equations_soa(row_specs) -> tuple[torch.Tensor, torch.Ten
         b = (wJ * rhs[..., None]).sum(dim=-2)
         ata = a if ata is None else ata + a
         atb = b if atb is None else atb + b
+    ata, atb = psum_many((ata, atb), group)
     return ata, atb
 
 
@@ -102,12 +110,13 @@ def estimate_pose_point_to_plane(
     tgt_normals: torch.Tensor,  # (..., N, 3)
     weights: torch.Tensor,      # (..., N)
     valid: torch.Tensor,        # (..., N) bool
+    group=None,
 ) -> torch.Tensor:
     """Linearized point-to-plane solve, centred at the matched-target mean
     (an exact reparametrization); returns the (..., 4, 4) increment. Pose
     from Euler angles R = Rx(a) Ry(b) Rz(g) (ICPOptimizer.h:768-779)."""
     w = weights * valid.to(src.dtype)
-    center = se3.masked_mean(tgt, valid)
+    center = se3.masked_mean(tgt, valid, group=group)
     s = src - center[..., None, :]
     d = tgt - center[..., None, :]
     n = torch.where(torch.isfinite(tgt_normals), tgt_normals, 0.0)
@@ -121,7 +130,7 @@ def estimate_pose_point_to_plane(
     plane_rhs = torch.sum(n * d, dim=-1) - torch.sum(n * s, dim=-1)
     specs = [(plane_cols, plane_rhs, LAMBDA_PLANE * w * finite_n)]
     specs += _point_row_specs(s, d, LAMBDA_POINT * w)
-    ata, atb = _accumulate_normal_equations_soa(specs)
+    ata, atb = _accumulate_normal_equations_soa(specs, group)
     x = _solve6(ata + 1e-12 * _eye6(ata), atb)
     R = se3.euler_xyz_to_matrix(x[..., 0], x[..., 1], x[..., 2])
     pose_centered = se3.pose_matrix(R, x[..., 3:6])
@@ -137,6 +146,7 @@ def estimate_pose_symmetric(
     tgt_normals: torch.Tensor,  # (..., N, 3)
     weights: torch.Tensor,      # (..., N)
     valid: torch.Tensor,        # (..., N) bool
+    group=None,
 ) -> torch.Tensor:
     """Symmetric ICP (Rusinkiewicz 2019) linear solve,
     ICPOptimizer.h:784-898: centre both clouds at their matched means,
@@ -144,8 +154,8 @@ def estimate_pose_symmetric(
     a*tan(theta) parametrization and compose
     ``T(mu_t) . R . T(t) . R . T(-mu_s)``."""
     w = weights * valid.to(src.dtype)
-    mean_src = se3.masked_mean(src, valid)
-    mean_tgt = se3.masked_mean(tgt, valid)
+    mean_src = se3.masked_mean(src, valid, group=group)
+    mean_tgt = se3.masked_mean(tgt, valid, group=group)
     s = src - mean_src[..., None, :]
     d = tgt - mean_tgt[..., None, :]
     ns = torch.where(torch.isfinite(src_normals), src_normals, 0.0)
@@ -164,7 +174,7 @@ def estimate_pose_symmetric(
     sym_rhs = torch.sum((d - s) * n_sum, dim=-1)
     specs = [(sym_cols, sym_rhs, LAMBDA_SYMMETRIC * w * finite_n)]
     specs += _point_row_specs(s, d, LAMBDA_POINT * w)
-    ata, atb = _accumulate_normal_equations_soa(specs)
+    ata, atb = _accumulate_normal_equations_soa(specs, group)
     x = _solve6(ata + (TIKHONOV_SYMMETRIC ** 2) * _eye6(ata), atb)
 
     a_tilde, t_tilde = x[..., :3], x[..., 3:6]
@@ -233,6 +243,7 @@ def estimate_pose_gicp(
     tgt_normals: torch.Tensor,  # (..., N, 3)
     weights: torch.Tensor,      # (..., N)
     valid: torch.Tensor,        # (..., N) bool
+    group=None,
 ) -> torch.Tensor:
     """Linearized Generalized-ICP solve; returns the (..., 4, 4) increment.
 
@@ -241,13 +252,13 @@ def estimate_pose_gicp(
     the matched-target mean (an exact reparametrization), Euler-angle pose
     recovery as the point-to-plane solve."""
     w = weights * valid.to(src.dtype)
-    center = se3.masked_mean(tgt, valid)
+    center = se3.masked_mean(tgt, valid, group=group)
     s = src - center[..., None, :]
     d = tgt - center[..., None, :]
     Lt = gicp_whitener(src_normals, tgt_normals).transpose(-1, -2)
     rows = Lt @ _point_rows(s)                                   # (..., N, 3, 6)
     rhs = (Lt @ (d - s)[..., None])[..., 0]                      # (..., N, 3)
-    ata, atb = _accumulate_normal_equations(rows, rhs, w[..., None].expand_as(rhs))
+    ata, atb = _accumulate_normal_equations(rows, rhs, w[..., None].expand_as(rhs), group)
     x = _solve6(ata + 1e-12 * _eye6(ata), atb)
     R = se3.euler_xyz_to_matrix(x[..., 0], x[..., 1], x[..., 2])
     pose_centered = se3.pose_matrix(R, x[..., 3:6])

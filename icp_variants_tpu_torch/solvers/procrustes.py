@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from icp_variants_tpu_torch.core import se3
+from icp_variants_tpu_torch.parallel.distributed import psum, psum_many
 
 
 def _det3(A: torch.Tensor) -> torch.Tensor:
@@ -32,8 +33,12 @@ def estimate_pose_point_to_point(
     weights: torch.Tensor,  # (..., N)
     valid: torch.Tensor,    # (..., N) bool
     weighted_means: bool = False,
+    group=None,
 ) -> torch.Tensor:
     """Closed-form weighted Kabsch; returns the (..., 4, 4) increment.
+
+    With ``group`` the N axis is split over its ranks: the means and the
+    3x3 cross-covariance are summed across them, the SVD runs on every rank.
 
     ``weighted_means=False`` keeps the reference's unweighted means and its
     weighted-source-rows-only covariance (the quirks above).
@@ -44,17 +49,20 @@ def estimate_pose_point_to_point(
     m = valid.to(src.dtype)
     if weighted_means:
         wm = weights * m
-        denom = torch.clamp(torch.sum(wm, dim=-1), min=1e-30)[..., None]
-        src_mean = torch.sum(src * wm[..., None], dim=-2) / denom
-        tgt_mean = torch.sum(tgt * wm[..., None], dim=-2) / denom
+        wsum, swsum, twsum = psum_many(
+            (torch.sum(wm, dim=-1), torch.sum(src * wm[..., None], dim=-2),
+             torch.sum(tgt * wm[..., None], dim=-2)), group)
+        denom = torch.clamp(wsum, min=1e-30)[..., None]
+        src_mean = swsum / denom
+        tgt_mean = twsum / denom
         sc = (src - src_mean[..., None, :]) * wm[..., None]
         dc = tgt - tgt_mean[..., None, :]
     else:
-        src_mean = se3.masked_mean(src, valid)
-        tgt_mean = se3.masked_mean(tgt, valid)
+        src_mean = se3.masked_mean(src, valid, group=group)
+        tgt_mean = se3.masked_mean(tgt, valid, group=group)
         sc = (src - src_mean[..., None, :]) * (weights * m)[..., None]
         dc = (tgt - tgt_mean[..., None, :]) * m[..., None]
-    A = dc.transpose(-1, -2) @ sc  # targetMatrix^T * sourceMatrix
+    A = psum(dc.transpose(-1, -2) @ sc, group)  # targetMatrix^T * sourceMatrix
 
     U, _, Vt = torch.linalg.svd(A)
     D = torch.ones_like(A[..., 0]).diag_embed()

@@ -336,11 +336,13 @@ class _SweepCheckpoint:
 
 
 def refine_trajectory(result: ETHRunResult, weights: np.ndarray | None = None, *,
-                      extra_edges=None, device=None):
+                      extra_edges=None, mesh=None, device=None):
     """Pose-graph refinement over a sequential ETH run (pair k registers
     scan k+1 onto scan k): chains the per-pair poses into absolute scan
     poses and refines them jointly (``parallel/pose_graph.refine``, on
-    ``device``, ``None`` = the card).
+    ``device``, ``None`` = the card). With ``mesh`` (a
+    ``distributed.Mesh``) the solve is ``pose_graph.refine_sharded``, the
+    edges split over the mesh's ``pairs`` ranks, on the mesh's device.
 
     Each pair was solved in its own perturbed frame, so the relative edge
     is ``icp_pose @ scaled_perturbation`` (``ETHPairResult.relative_pose``).
@@ -348,7 +350,7 @@ def refine_trajectory(result: ETHRunResult, weights: np.ndarray | None = None, *
     with ``rel_pose`` mapping scan j's coordinates onto scan i's
     (:func:`register_closures` builds them). Returns ``(odometry, refined,
     graph)``, the poses as host arrays."""
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None and device is None else resolve_device(device)
     rel = np.stack([p.relative_pose for p in result.pairs])
     odometry, graph = pose_graph.sequential_graph(rel, weights, device=dev)
     if extra_edges:
@@ -362,8 +364,11 @@ def refine_trajectory(result: ETHRunResult, weights: np.ndarray | None = None, *
             weights=torch.cat([graph.weights, torch.tensor([e[3] for e in extra_edges],
                                                            dtype=torch.float32, device=dev)]),
         )
-    refined = pose_graph.refine(odometry, graph).cpu().numpy()
-    return odometry, refined, graph
+    if mesh is not None:
+        refined = pose_graph.refine_sharded(odometry, graph, mesh)
+    else:
+        refined = pose_graph.refine(odometry, graph)
+    return odometry, refined.cpu().numpy(), graph
 
 
 def find_loop_closures(odometry: np.ndarray, *, radius: float = 1.0, min_separation: int = 3,
