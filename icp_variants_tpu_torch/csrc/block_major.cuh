@@ -56,6 +56,11 @@
 // runs and every chunk still stages its block, but no distance is taken and
 // every row gets (start, -1).
 //
+// With `counters` (null: none) the launches add their work to three int64
+// counters: [0] rows with a pick (the bucketing, one atomic a CTA), [1]
+// (query, block) entries bucketed and [2] bucket chunks staged (the
+// scan's totals, one thread). Nothing else changes.
+//
 // The including source defines BM_KERNEL(part), the name of each
 // __global__ (its own prefix, so a profile attributes each launch to the
 // C entry that made it). Built with -DKDB_LANE_COUNT (kd_block_search.cu's
@@ -127,17 +132,21 @@ __device__ __forceinline__ float start_of(const float* __restrict__ binit, float
 __global__ void __launch_bounds__(KDB_THREADS)
 BM_KERNEL(bin)(const int32_t* __restrict__ sel, const float* __restrict__ binit,
                float binit_value, unsigned long long* __restrict__ keys,
-               int* __restrict__ counts, int* __restrict__ rank, int N, int nc, int k) {
+               int* __restrict__ counts, int* __restrict__ rank, int N, int nc, int k,
+               unsigned long long* __restrict__ counters) {
   extern __shared__ int sh[];
+  __shared__ int s_rows;  // rows whose first pick lies in this CTA (counters only)
   int* hist = sh;
   int* base = sh + nc;
   for (int i = threadIdx.x; i < nc; i += blockDim.x) hist[i] = 0;
+  if (threadIdx.x == 0) s_rows = 0;
   __syncthreads();
   const int b = blockIdx.y;
   const size_t nk = static_cast<size_t>(N) * k;
   const size_t e0 = static_cast<size_t>(blockIdx.x) * KDB_THREADS * KDB_BIN_EPT;
   const int32_t* psel = sel + b * nk;
   int blk[KDB_BIN_EPT], lr[KDB_BIN_EPT];
+  int rows = 0;
 #pragma unroll
   for (int i = 0; i < KDB_BIN_EPT; ++i) {
     const size_t e = e0 + i * KDB_THREADS + threadIdx.x;
@@ -151,17 +160,25 @@ BM_KERNEL(bin)(const int32_t* __restrict__ sel, const float* __restrict__ binit,
     }
     const int c = icp_clip_pick(psel[e], nc);
     if (c < 0) continue;
-    bool dup = false;
-    for (int p = 1; p <= pos; ++p) dup |= icp_clip_pick(psel[e - p], nc) == c;
+    bool dup = false, first = true;
+    for (int p = 1; p <= pos; ++p) {
+      const int o = icp_clip_pick(psel[e - p], nc);
+      dup |= o == c;
+      first &= o < 0;
+    }
     if (dup) continue;
+    rows += first;
     blk[i] = c;
     lr[i] = atomicAdd(&hist[c], 1);
   }
+  if (counters != nullptr && rows) atomicAdd(&s_rows, rows);
   __syncthreads();
   for (int i = threadIdx.x; i < nc; i += blockDim.x) {
     const int h = hist[i];
     base[i] = h ? atomicAdd(&counts[b * nc + i], h) : 0;
   }
+  if (counters != nullptr && threadIdx.x == 0 && s_rows)
+    atomicAdd(&counters[0], static_cast<unsigned long long>(s_rows));
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < KDB_BIN_EPT; ++i) {
@@ -170,11 +187,16 @@ BM_KERNEL(bin)(const int32_t* __restrict__ sel, const float* __restrict__ binit,
   }
 }
 
-// 2. Exclusive scans of the bucket sizes and of their chunk counts.
+// 2. Exclusive scans of the bucket sizes and of their chunk counts; the
+// last thread, which writes the totals, adds them to the counters.
 __global__ void __launch_bounds__(KDB_SCAN_THREADS)
 BM_KERNEL(scan)(int* __restrict__ counts, int* __restrict__ boff, int* __restrict__ coff,
-                int nb, int chunk) {
+                int nb, int chunk, unsigned long long* __restrict__ counters) {
   icp_bucket_scan<KDB_SCAN_THREADS, false>(counts, boff, coff, nb, chunk);
+  if (counters != nullptr && threadIdx.x == KDB_SCAN_THREADS - 1) {
+    atomicAdd(&counters[1], static_cast<unsigned long long>(boff[nb]));
+    atomicAdd(&counters[2], static_cast<unsigned long long>(coff[nb]));
+  }
 }
 
 // 3. Entries into bucket order.
@@ -418,12 +440,14 @@ static cudaError_t block_major_check(const float* pages, long long ws_bytes, int
 }
 
 // The five launches on stream s (arguments checked by block_major_check).
-// SEEDED: binit is null and every row starts at binit_value.
+// SEEDED: binit is null and every row starts at binit_value. counters: null,
+// or the three work counters the launches add to.
 template <int D, bool PROBE, bool SEEDED, bool POSE>
 static cudaError_t block_major_launch(const float* q, const float* pose, const int32_t* sel,
                                       const float* binit, float binit_value, const float* pages,
                                       float* d2, int32_t* idx, void* ws, int B, int N, int nc,
-                                      int cap_pad, int k, cudaStream_t s) {
+                                      int cap_pad, int k, unsigned long long* counters,
+                                      cudaStream_t s) {
   constexpr int chunk = KdbShape<D, SEEDED>::chunk;
   Workspace w;
   workspace_layout(static_cast<char*>(ws), B, N, nc, k, &w);
@@ -436,9 +460,10 @@ static cudaError_t block_major_launch(const float* q, const float* pose, const i
   const dim3 bin_grid(static_cast<unsigned>((nk + KDB_THREADS * KDB_BIN_EPT - 1) /
                                             (KDB_THREADS * KDB_BIN_EPT)), B);
   BM_KERNEL(bin)<<<bin_grid, KDB_THREADS, bin_smem, s>>>(sel, binit, binit_value, w.keys,
-                                                         w.counts, w.rank, N, nc, k);
+                                                         w.counts, w.rank, N, nc, k, counters);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  BM_KERNEL(scan)<<<1, KDB_SCAN_THREADS, 0, s>>>(w.counts, w.boff, w.coff, nb, chunk);
+  BM_KERNEL(scan)<<<1, KDB_SCAN_THREADS, 0, s>>>(w.counts, w.boff, w.coff, nb, chunk,
+                                                  counters);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   BM_KERNEL(scatter)<<<bin_grid, KDB_THREADS, 0, s>>>(sel, w.rank, w.boff, w.ent, N, nc, k);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;

@@ -57,9 +57,10 @@ static cudaError_t launch(const float* q, const int32_t* blk, const float* pose,
                           int nc, int cap_pad, cudaStream_t s) {
   return pose != nullptr
              ? block_major_launch<D, false, true, true>(q, pose, blk, nullptr, bound, pages, d2,
-                                                        idx, ws, B, N, nc, cap_pad, 1, s)
+                                                        idx, ws, B, N, nc, cap_pad, 1, nullptr, s)
              : block_major_launch<D, false, true, false>(q, nullptr, blk, nullptr, bound, pages,
-                                                         d2, idx, ws, B, N, nc, cap_pad, 1, s);
+                                                         d2, idx, ws, B, N, nc, cap_pad, 1,
+                                                         nullptr, s);
 }
 
 // pose: null, or (B, 16) f32 (the transform_pose mode: q holds raw features).

@@ -21,6 +21,11 @@
 // pair, a 64-bit atomicMin merge). cached_block_search.cu runs the same
 // machinery at k = 1 from a common bound, so the header holds it once.
 //
+// `counters` (null: none) takes the three work counts of the launch, added
+// where the work happens (block_major.cuh): rows searched (rows with a
+// pick), the (query, block) entries bucketed, and the bucket chunks staged,
+// the block loads those entries share.
+//
 // With probe != 0 (a measurement aid: the JAX kernel's probe >= 1) the
 // bucketing runs and every chunk still stages its block, but no distance is
 // taken and every row gets (binit, -1).
@@ -43,22 +48,28 @@
 template <int D>
 static cudaError_t launch(const float* q, const int32_t* sel, const float* binit,
                           const float* pages, float* d2, int32_t* idx, void* ws, int B, int N,
-                          int nc, int cap_pad, int k, int probe, cudaStream_t s) {
+                          int nc, int cap_pad, int k, int probe, unsigned long long* counters,
+                          cudaStream_t s) {
   return probe ? block_major_launch<D, true, false, false>(q, nullptr, sel, binit, 0.0f, pages,
-                                                           d2, idx, ws, B, N, nc, cap_pad, k, s)
+                                                           d2, idx, ws, B, N, nc, cap_pad, k,
+                                                           counters, s)
                : block_major_launch<D, false, false, false>(q, nullptr, sel, binit, 0.0f, pages,
-                                                            d2, idx, ws, B, N, nc, cap_pad, k, s);
+                                                            d2, idx, ws, B, N, nc, cap_pad, k,
+                                                            counters, s);
 }
 
+// counters: null, or three int64 counters (rows, entries, chunks) to add to.
 extern "C" int kd_block_search_launch(const float* q, const int32_t* sel, const float* binit,
                                       const float* pages, float* d2, int32_t* idx, void* ws,
                                       long long ws_bytes, int B, int N, int nc, int cap_pad,
-                                      int k, int probe, int D, void* stream) {
+                                      int k, int probe, unsigned long long* counters, int D,
+                                      void* stream) {
   bool empty;
   cudaError_t err = block_major_check(pages, ws_bytes, B, N, nc, cap_pad, k, &empty);
   if (err != cudaSuccess || empty) return static_cast<int>(err);
   return static_cast<int>(ICP_DISPATCH_D(D, launch, q, sel, binit, pages, d2, idx, ws, B, N, nc,
-                                         cap_pad, k, probe, static_cast<cudaStream_t>(stream)));
+                                         cap_pad, k, probe, counters,
+                                         static_cast<cudaStream_t>(stream)));
 }
 
 #ifdef KDB_LANE_COUNT

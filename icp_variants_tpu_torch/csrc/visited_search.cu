@@ -47,6 +47,10 @@
 //     neighbouring live queries, sharing each tile's loads, was measured
 //     slower on the sparse fallbacks of the main paths (PERF.md §6).
 //
+// `counters` (null: none) takes one int64 count, the live rows the launch
+// searches (the rows whose certificate failed), added by one thread a CTA
+// of the compaction.
+//
 // Built for D = 3 (geometry) and D = 6 (colour features).
 #include <algorithm>
 
@@ -84,7 +88,8 @@ __device__ __forceinline__ void take_min(float& d, int& i, float dn, int in) {
 __global__ void __launch_bounds__(VS_THREADS)
 visited_search_compact(const float* __restrict__ radius, int* __restrict__ cnt,
                        int* __restrict__ list, float* __restrict__ d2_out,
-                       int32_t* __restrict__ idx_out, int N) {
+                       int32_t* __restrict__ idx_out, int N,
+                       unsigned long long* __restrict__ counters) {
   __shared__ int s_warp[VS_WARPS];
   __shared__ int s_base;
   const int b = blockIdx.y;
@@ -111,6 +116,7 @@ visited_search_compact(const float* __restrict__ radius, int* __restrict__ cnt,
       total += c;
     }
     s_base = total ? atomicAdd(&cnt[b], total) : 0;
+    if (counters != nullptr && total) atomicAdd(counters, static_cast<unsigned long long>(total));
   }
   __syncthreads();
   if (live)
@@ -231,14 +237,15 @@ visited_search_walk(const float* __restrict__ q, const float* __restrict__ radiu
 template <int D>
 static cudaError_t launch(const float* q, const float* radius, const float* pages,
                           const float* tmin, const float* tmax, float* d2, int32_t* idx,
-                          void* ws, int B, int N, int n_tiles, int tile_t, cudaStream_t s) {
+                          void* ws, int B, int N, int n_tiles, int tile_t,
+                          unsigned long long* counters, cudaStream_t s) {
   int* cnt = static_cast<int*>(ws);
   int* list =
       reinterpret_cast<int*>(static_cast<char*>(ws) + icp_align16(4 * static_cast<size_t>(B)));
   cudaError_t err = cudaMemsetAsync(cnt, 0, sizeof(int) * B, s);
   if (err != cudaSuccess) return err;
   visited_search_compact<<<dim3((N + VS_THREADS - 1) / VS_THREADS, B), VS_THREADS, 0, s>>>(
-      radius, cnt, list, d2, idx, N);
+      radius, cnt, list, d2, idx, N, counters);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // Warps per CTA: as many as the tile-bound lists fit, at most VS_WARPS.
   const int warps = static_cast<int>(
@@ -258,10 +265,12 @@ static cudaError_t launch(const float* q, const float* radius, const float* page
   return cudaGetLastError();
 }
 
+// counters: null, or one int64 counter of the live rows searched.
 extern "C" int visited_search_launch(const float* q, const float* radius, const float* pages,
                                      const float* tmin, const float* tmax, float* d2,
                                      int32_t* idx, void* ws, long long ws_bytes, int B, int N,
-                                     int n_tiles, int tile_t, int D, void* stream) {
+                                     int n_tiles, int tile_t, unsigned long long* counters, int D,
+                                     void* stream) {
   if (tile_t % 4 != 0 || tile_t < 4 || n_tiles < 1) return cudaErrorInvalidValue;
   if (B == 0 || N == 0) return cudaSuccess;
   // The tiled index fits an int; one warp's tile bounds fit the walk's shared memory.
@@ -270,5 +279,6 @@ extern "C" int visited_search_launch(const float* q, const float* radius, const 
       static_cast<long long>(workspace_bytes(B, N)) > ws_bytes)
     return cudaErrorInvalidValue;
   return static_cast<int>(ICP_DISPATCH_D(D, launch, q, radius, pages, tmin, tmax, d2, idx, ws, B,
-                                         N, n_tiles, tile_t, static_cast<cudaStream_t>(stream)));
+                                         N, n_tiles, tile_t, counters,
+                                         static_cast<cudaStream_t>(stream)));
 }

@@ -48,6 +48,8 @@ KERNEL_DIMS = (3, 6)
 # kernel name -> (source file, C function, ctypes argtypes); every C
 # function ends with (..., void* stream), and all but
 # projective_window_search (geometry only) with (..., int D, void* stream).
+# kd_block_search and visited_search take, just before D, the work counters
+# they add to (null: none; runtime/spans.py).
 # dense_nn_search and pruned_nn_search are two entries of one source;
 # visited_ablate is the measurement kernel of scripts/knn_ablate.py.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -55,10 +57,10 @@ KERNELS = {
     "box_topk": ("box_topk.cu", "box_topk_launch", [_P] * 6 + [_I] * 5 + [_P]),
     "kd_block_search": (
         "kd_block_search.cu", "kd_block_search_launch",
-        [_P] * 7 + [ctypes.c_longlong] + [_I] * 7 + [_P]),
+        [_P] * 7 + [ctypes.c_longlong] + [_I] * 6 + [_P, _I, _P]),
     "visited_search": (
         "visited_search.cu", "visited_search_launch",
-        [_P] * 8 + [ctypes.c_longlong] + [_I] * 5 + [_P]),
+        [_P] * 8 + [ctypes.c_longlong] + [_I] * 4 + [_P, _I, _P]),
     "cached_block_search": (
         "cached_block_search.cu", "cached_block_search_launch",
         [_P, _P, _P, _F] + [_P] * 4 + [ctypes.c_longlong] + [_I] * 5 + [_P]),

@@ -45,7 +45,7 @@ import torch
 from icp_variants_tpu_torch.core import se3
 from icp_variants_tpu_torch.core.device import resolve_device
 from icp_variants_tpu_torch.ops import _cuda, knn
-from icp_variants_tpu_torch.runtime import native
+from icp_variants_tpu_torch.runtime import native, spans
 
 # Sentinel for padded block slots: finite in f32, never the argmin.
 LEAF_PAD = 1.0e9
@@ -293,10 +293,34 @@ def _block_search_workspace_bytes(b: int, n: int, nc: int, k: int) -> int:
     return sum(-(-s // 16) * 16 for s in sizes)
 
 
-def kd_block_search_plain(q, sel, binit, pages, probe: int = 0):
+# Entries of a (pair, block) bucket that one walk CTA stages, by D
+# (KdbShape<D, false> in csrc/block_major.cuh).
+KDB_CHUNK = {3: 64, 6: 512}
+
+
+def kd_block_search_counts(sel: torch.Tensor, nc: int, d: int) -> torch.Tensor:
+    """The work counts of one :func:`kd_block_search` launch, as its kernel
+    adds them (``csrc/block_major.cuh``), int64 ``[rows with a pick,
+    (query, block) entries, bucket chunks staged]``: ids < 0 are no pick,
+    ids past nc - 1 are clipped, a block repeated in a row is one entry,
+    and each (pair, block) bucket is staged in chunks of ``KDB_CHUNK[d]``
+    entries."""
+    c = torch.sort(torch.where(sel < 0, -1, sel.clamp(max=nc - 1)).long(), dim=-1).values
+    keep = c >= 0
+    keep[..., 1:] &= c[..., 1:] != c[..., :-1]
+    pair = torch.arange(sel.shape[0], device=sel.device)[:, None, None]
+    buckets = torch.bincount((pair * nc + c)[keep], minlength=sel.shape[0] * nc)
+    chunk = KDB_CHUNK[d]
+    return torch.stack([keep.any(-1).sum(), keep.sum(), ((buckets + chunk - 1) // chunk).sum()])
+
+
+def kd_block_search_plain(q, sel, binit, pages, probe: int = 0, counters=None):
     """Plain version of :func:`kd_block_search`: gather each query's k
     blocks and take the first minimum in (sel position, slot) order; with
-    ``probe`` >= 1, ``(binit, -1)``."""
+    ``probe`` >= 1, ``(binit, -1)``. ``counters`` (three int64 slots, or
+    None) take :func:`kd_block_search_counts`."""
+    if counters is not None:
+        counters[:3] += kd_block_search_counts(sel, pages.shape[1], q.shape[-1])
     if probe:
         return binit.clone(), torch.full(binit.shape, -1, dtype=torch.int32, device=q.device)
     b, n, d = q.shape
@@ -341,17 +365,24 @@ def kd_block_search(
     block, but no distance is computed, and every row returns
     ``(binit, -1)``, not a match. As in the
     JAX package, whose probe zeroes every gate's member count
-    (``knn.py:1467``), both values do the same."""
+    (``knn.py:1467``), both values do the same.
+
+    While :mod:`~icp_variants_tpu_torch.runtime.spans` records, the launch
+    adds its work to the recording's counters (``kd_rows``,
+    ``kd_entries``, ``kd_chunks``; :func:`kd_block_search_counts`)."""
     if probe not in (0, 1, 2):
         raise ValueError(f"kd_block_search: probe must be 0, 1 or 2, got {probe}")
+    counters = spans.counters("kd_block_search", q.device)
     if q.device.type == "cpu":
-        return kd_block_search_plain(q, sel, binit, pages, probe)
-    return _kd_block_search_launch(q, sel, binit, pages, probe)
+        return kd_block_search_plain(q, sel, binit, pages, probe, counters)
+    return _kd_block_search_launch(q, sel, binit, pages, probe, counters=counters)
 
 
-def _kd_block_search_launch(q, sel, binit, pages, probe, defines=()):
+def _kd_block_search_launch(q, sel, binit, pages, probe, defines=(), counters=None):
     """Check the CUDA operands and launch ``csrc/kd_block_search.cu``
-    (its :func:`_cuda.variant` build with ``defines``, uncounted)."""
+    (its :func:`_cuda.variant` build with ``defines``, uncounted);
+    ``counters``: None, or three int64 slots on ``q``'s device the kernel
+    adds its work to."""
     b, n = q.shape[0], q.shape[1]
     d = _cuda.feature_dim("kd_block_search", q.shape[-1])
     k = sel.shape[-1]
@@ -365,8 +396,10 @@ def _kd_block_search_launch(q, sel, binit, pages, probe, defines=()):
     idx = torch.empty((b, n), dtype=torch.int32, device=q.device)
     ws_bytes = _block_search_workspace_bytes(b, n, nc, k)
     ws = torch.empty(ws_bytes, dtype=torch.uint8, device=q.device)
+    if counters is not None:
+        chk("counters", counters, torch.int64, (None,))
     _cuda.launch("kd_block_search", q, sel, binit, pages, d2, idx, ws, ws_bytes, b, n, nc,
-                 cap_pad, k, int(probe > 0), d, defines=defines)
+                 cap_pad, k, int(probe > 0), counters, d, defines=defines)
     return d2, idx
 
 

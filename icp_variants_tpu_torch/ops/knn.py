@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from icp_variants_tpu_torch.ops import _cuda
+from icp_variants_tpu_torch.runtime import spans
 
 # Feature dim of the index tables (coordinates, then zeros).
 FEATURE_PAD = 8
@@ -275,12 +276,16 @@ def _visit_lists_from(lb, visited, bound_val):
 
 
 def visited_search_plain(
-    queries: torch.Tensor, radius: torch.Tensor, index: TargetIndex, *, chunk: int = 8192
+    queries: torch.Tensor, radius: torch.Tensor, index: TargetIndex, *, chunk: int = 8192,
+    counters=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`visited_search`: a chunked direct-difference
     exact 1-NN over every tiled target row, strictly below each query's
     radius (negative = frozen: idx -1, d2 = radius). Ties go to the lowest
-    tiled row. Only the live rows of each pair are computed."""
+    tiled row. Only the live rows of each pair are computed. ``counters``
+    (an int64 slot, or None) takes the number of live rows."""
+    if counters is not None:
+        counters[0] += (radius >= 0).sum()
     d = queries.shape[-1]
     best = radius.clone()
     idx = torch.full(radius.shape, -1, dtype=torch.int32, device=radius.device)
@@ -321,9 +326,13 @@ def visited_search(
     The kernel lists each pair's live rows in a scratch workspace the
     wrapper allocates from the shapes, and walks each live query's tiles
     in ascending order of its box bound to them, stopping once the next
-    bound exceeds its running best."""
+    bound exceeds its running best.
+
+    While :mod:`~icp_variants_tpu_torch.runtime.spans` records, the launch
+    adds its live rows to the recording's ``fallback_rows`` counter."""
+    counters = spans.counters("visited_search", queries.device)
     if queries.device.type == "cpu":
-        return visited_search_plain(queries, radius, index)
+        return visited_search_plain(queries, radius, index, counters=counters)
     b, n = queries.shape[0], queries.shape[1]
     d = _cuda.feature_dim("visited_search", queries.shape[-1])
     n_tiles, tile_t = index.points_t3.shape[-3], index.points_t3.shape[-1]
@@ -337,9 +346,11 @@ def visited_search(
     idx = torch.empty((b, n), dtype=torch.int32, device=queries.device)
     ws_bytes = _visited_search_workspace_bytes(b, n, n_tiles, tile_t)
     ws = torch.empty(ws_bytes, dtype=torch.uint8, device=queries.device)
+    if counters is not None:
+        chk("counters", counters, torch.int64, (None,))
     _cuda.launch(
         "visited_search", queries, radius, index.points_t3, index.bbox_min,
-        index.bbox_max, d2, idx, ws, ws_bytes, b, n, n_tiles, tile_t, d,
+        index.bbox_max, d2, idx, ws, ws_bytes, b, n, n_tiles, tile_t, counters, d,
     )
     return d2, idx
 

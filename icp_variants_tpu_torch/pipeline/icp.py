@@ -24,6 +24,11 @@ coarse levels) runs on the stride-sliced source, and the approximate arm's
 block-membership cache threads from a level into the next. On the exact
 arm of a dense selection each row's last match rides the iterations in a
 granule cache and warm-starts the next search (:func:`_warm_applies`).
+
+Each entry call, its set-up, each pyramid level and each stage of every
+iteration run in a span of :mod:`icp_variants_tpu_torch.runtime.spans`
+(``icp.call``, ``icp.prepare``, ``icp.level``, ``icp.selection``, ...),
+recorded inside ``spans.recording()`` or under a torch profiler.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from icp_variants_tpu_torch.pipeline.config import (
     Selection,
     Weighting,
 )
+from icp_variants_tpu_torch.runtime import spans
 from icp_variants_tpu_torch.solvers import anderson, gauss_newton, linear, procrustes
 
 # Below this size the kd build outweighs the candidate savings.
@@ -325,15 +331,16 @@ def _iteration(
     cache: torch.Tensor | None,
     seeded: bool,
     target_feats: torch.Tensor | None,
+    trace: ICPTrace,
     stop_after: str | None = None,
     group=None,
     shard_index: int = 0,
 ):
-    """One pipeline iteration over all B pairs; returns
-    ``(new_pose, rmse, benchmark, num_matches, cache)``, each with leading
-    B. ``cache`` / ``seeded`` are the membership or warm cache and
-    ``target_feats`` the warm cache's feature table (see
-    :func:`_match_kd_stage`).
+    """One pipeline iteration over all B pairs: writes iteration ``t`` of
+    the (B, T) ``trace`` buffers (rmse, benchmark error, match count) and
+    returns ``(new_pose, cache)``. ``cache`` / ``seeded`` are the
+    membership or warm cache and ``target_feats`` the warm cache's feature
+    table (see :func:`_match_kd_stage`).
 
     ``group`` (None = one device): the ranks the source rows are split
     over, this rank holding shard ``shard_index``. Its rows are numbered
@@ -344,85 +351,99 @@ def _iteration(
     ``stop_after`` (one of :data:`PROBE_STAGES`) ends the iteration after
     that stage, as the JAX package's stage probes do: the pose comes back
     unchanged (the solve's probe: updated), the cache as it stands, and
-    :func:`_probe_trace` of the stage's checksum."""
+    :func:`_probe_trace` writes the stage's checksum.
+
+    Each stage runs in its :mod:`~icp_variants_tpu_torch.runtime.spans`
+    span (``icp.selection``, ``icp.matching``, ``icp.weighting``,
+    ``icp.rejection``, ``icp.solve``, ``icp.measure``)."""
     # No anti-hoisting pose epsilon (JAX icp.py:487-503): eager PyTorch hoists nothing.
     if stop_after == "floor":
-        return _probe_trace(pose, pose.sum((-2, -1)), cache)
-    source, sel_mask, src_pts = _queries(cfg, source, src_table, pose, stride, generator,
-                                         selected, t, shard_index * source.capacity)
-    src_nrm = se3.transform_normals(source.normals, pose)
+        return _probe_trace(trace, t, pose, pose.sum((-2, -1)), cache)
+    with spans.span("icp.selection"):
+        source, sel_mask, src_pts = _queries(cfg, source, src_table, pose, stride, generator,
+                                             selected, t, shard_index * source.capacity)
+        src_nrm = se3.transform_normals(source.normals, pose)
     if stop_after == "selection":
-        return _probe_trace(pose, src_pts.sum((-2, -1)) + src_nrm.sum((-2, -1)), cache)
+        return _probe_trace(trace, t, pose, src_pts.sum((-2, -1)) + src_nrm.sum((-2, -1)), cache)
 
     # --- stage 2: matching: the projective window search against the
     # image-shaped target, else k-NN, over the 6-dim colour features under
     # color-ICP (NearestNeighbor.h:212-224) ------------------------------------
-    if cfg.matching == Matching.PROJECTIVE:
-        idx, d2, valid = projective.projective_match(
-            src_pts, target.points, target.valid, fx=cfg.projective_fx, fy=cfg.projective_fy,
-            cx=cfg.projective_cx, cy=cfg.projective_cy, width=cfg.projective_width,
-            height=cfg.projective_height, window=cfg.projective_window,
-            max_distance=cfg.max_distance, query_mask=sel_mask,
-            chunk=cfg.projective_chunk or projective.CHUNK)
-    else:
-        q = knn.color_features(src_pts, source.colors) if cfg.color_icp else src_pts
-        if kd_index is not None:
-            idx, d2, valid, cache = _match_kd_stage(
-                cfg, q, kd_index, target_index, sel_mask, cache, seeded, target_feats)
+    with spans.span("icp.matching"):
+        if cfg.matching == Matching.PROJECTIVE:
+            idx, d2, valid = projective.projective_match(
+                src_pts, target.points, target.valid, fx=cfg.projective_fx,
+                fy=cfg.projective_fy, cx=cfg.projective_cx, cy=cfg.projective_cy,
+                width=cfg.projective_width, height=cfg.projective_height,
+                window=cfg.projective_window, max_distance=cfg.max_distance,
+                query_mask=sel_mask, chunk=cfg.projective_chunk or projective.CHUNK)
         else:
-            idx, d2, valid = knn.match_indexed(
-                q, target_index, cfg.max_distance, query_mask=sel_mask)
-    if stop_after == "matching":
-        return _probe_trace(pose, d2.sum(-1) + idx.sum(-1) + valid.sum(-1), cache)
-    idx = torch.clamp(idx, 0, tgt_table.shape[-2] - 1)
-    tgt_rows = knn.take_rows(tgt_table, idx)
-    valid = valid & (tgt_rows[..., 6] > 0.5)
-    m = weighting.MatchArrays(
-        src_points=src_pts,
-        tgt_points=tgt_rows[..., :3],
-        src_normals=src_nrm,
-        tgt_normals=tgt_rows[..., 3:6],
-        src_colors=source.colors,
-        tgt_colors=(knn.take_rows(target.colors, idx)
-                    if cfg.weighting == Weighting.COLORS
-                    else torch.zeros_like(source.colors)),
-        valid=valid,
-    )
+            q = knn.color_features(src_pts, source.colors) if cfg.color_icp else src_pts
+            if kd_index is not None:
+                idx, d2, valid, cache = _match_kd_stage(
+                    cfg, q, kd_index, target_index, sel_mask, cache, seeded, target_feats)
+            else:
+                idx, d2, valid = knn.match_indexed(
+                    q, target_index, cfg.max_distance, query_mask=sel_mask)
+        if stop_after == "matching":
+            return _probe_trace(trace, t, pose, d2.sum(-1) + idx.sum(-1) + valid.sum(-1), cache)
+        idx = torch.clamp(idx, 0, tgt_table.shape[-2] - 1)
+        tgt_rows = knn.take_rows(tgt_table, idx)
+        valid = valid & (tgt_rows[..., 6] > 0.5)
+        m = weighting.MatchArrays(
+            src_points=src_pts,
+            tgt_points=tgt_rows[..., :3],
+            src_normals=src_nrm,
+            tgt_normals=tgt_rows[..., 3:6],
+            src_colors=source.colors,
+            tgt_colors=(knn.take_rows(target.colors, idx)
+                        if cfg.weighting == Weighting.COLORS
+                        else torch.zeros_like(source.colors)),
+            valid=valid,
+        )
 
     # --- stage 3: weighting; stage 4: rejection ------------------------------
-    w = weighting.apply_weights(cfg.weighting, m, cfg.max_distance, group=group)
+    with spans.span("icp.weighting"):
+        w = weighting.apply_weights(cfg.weighting, m, cfg.max_distance, group=group)
     if stop_after == "weighting":
-        return _probe_trace(pose, w.sum(-1) + m.tgt_points.sum((-2, -1)), cache)
-    if cfg.rejection:
-        m = m._replace(valid=rejection.normal_angle_mask(m.src_normals, m.tgt_normals, m.valid))
-    if cfg.trim_ratio < 1.0:
-        m = m._replace(valid=rejection.trimmed_mask(d2, m.valid, cfg.trim_ratio, cfg.max_distance,
-                                                    group=group))
+        return _probe_trace(trace, t, pose, w.sum(-1) + m.tgt_points.sum((-2, -1)), cache)
+    with spans.span("icp.rejection"):
+        if cfg.rejection:
+            m = m._replace(
+                valid=rejection.normal_angle_mask(m.src_normals, m.tgt_normals, m.valid))
+        if cfg.trim_ratio < 1.0:
+            m = m._replace(valid=rejection.trimmed_mask(
+                d2, m.valid, cfg.trim_ratio, cfg.max_distance, group=group))
     if stop_after == "rejection":
         return _probe_trace(
-            pose, w.sum(-1) + m.valid.sum(-1) + m.tgt_points.sum((-2, -1)), cache)
+            trace, t, pose, w.sum(-1) + m.valid.sum(-1) + m.tgt_points.sum((-2, -1)), cache)
 
     # --- stages 5+6: solve + left-multiplied pose update ---------------------
-    increment = _solve(cfg, m, w, group)
-    new_pose = increment @ pose
+    with spans.span("icp.solve"):
+        increment = _solve(cfg, m, w, group)
+        new_pose = increment @ pose
     if stop_after == "solve":
-        return _probe_trace(new_pose, increment.sum((-2, -1)), cache)
+        return _probe_trace(trace, t, new_pose, increment.sum((-2, -1)), cache)
 
     # The ground-truth rows are split alongside the source's.
-    rmse = measure.rmse_alignment_error(new_pose, gt_src, gt_tgt, gt_valid, group=group)
-    bench = (measure.benchmark_error(new_pose, gt_src, gt_tgt, gt_valid, group=group)
-             if run_benchmark else torch.zeros_like(rmse))
-    num_matches = psum(torch.sum(m.valid, dim=-1, dtype=torch.int32), group)
-    return new_pose, rmse, bench, num_matches, cache
+    with spans.span("icp.measure"):
+        rmse = measure.rmse_alignment_error(new_pose, gt_src, gt_tgt, gt_valid, group=group)
+        bench = (measure.benchmark_error(new_pose, gt_src, gt_tgt, gt_valid, group=group)
+                 if run_benchmark else torch.zeros_like(rmse))
+        num_matches = psum(torch.sum(m.valid, dim=-1, dtype=torch.int32), group)
+        trace.rmse[:, t], trace.benchmark[:, t], trace.num_matches[:, t] = rmse, bench, num_matches
+    return new_pose, cache
 
 
-def _probe_trace(pose, checksum, cache):
-    """A stage probe's iteration result: the pose, the (B,) checksum of the
-    stage's outputs in the rmse slot, zero benchmark and match counts, and
-    the cache."""
+def _probe_trace(trace, t, pose, checksum, cache):
+    """A stage probe's iteration: the (B,) checksum of the stage's outputs
+    written into iteration ``t`` of ``trace``'s rmse, zero benchmark and
+    match counts; returns the pose and the cache."""
     checksum = checksum.to(torch.float32)
-    return (pose, checksum, torch.zeros_like(checksum),
-            torch.zeros(checksum.shape, dtype=torch.int32, device=checksum.device), cache)
+    trace.rmse[:, t], trace.benchmark[:, t], trace.num_matches[:, t] = (
+        checksum, torch.zeros_like(checksum),
+        torch.zeros(checksum.shape, dtype=torch.int32, device=checksum.device))
+    return pose, cache
 
 
 def stack_clouds(clouds) -> Cloud:
@@ -496,87 +517,92 @@ def run_icp_batch(
         raise ValueError(
             f"projective matching needs image-shaped targets of "
             f"{cfg.projective_width} x {cfg.projective_height} rows, got {targets.capacity}")
-    dev = resolve_device(device)
-    sources, targets = sources.to(dev), targets.to(dev)
-    if kd_indexes is not None:
-        kd_indexes = kdtree.KDIndex(*(None if f is None else f.to(dev) for f in kd_indexes))
-    b, cap = sources.valid.shape
-    if init_poses is None:
-        init_poses = torch.eye(4, dtype=torch.float32, device=dev).expand(b, 4, 4)
-    pose = torch.as_tensor(init_poses, dtype=torch.float32).to(dev).contiguous()
-    if gt_source_points is None:
-        gt_src = torch.zeros((b, 1, 3), device=dev)
-        gt_tgt = torch.zeros((b, 1, 3), device=dev)
-        gtv = torch.ones((b, 1), dtype=torch.bool, device=dev)
-    else:
-        gt_src = torch.as_tensor(gt_source_points, dtype=torch.float32).to(dev)
-        gt_tgt = torch.as_tensor(gt_target_points, dtype=torch.float32).to(dev)
-        gtv = (torch.ones(gt_src.shape[:2], dtype=torch.bool, device=dev) if gt_valid is None
-               else torch.as_tensor(gt_valid, dtype=torch.bool).to(dev))
-    if strides is None:
-        strides = cloud_lib.multires_stride_schedule(
-            cap if num_source_points is None else num_source_points,
-            cfg.n_iterations, cfg.multi_resolution, cfg.multi_resolution_min_points)
-    strides = [int(s) for s in np.asarray(strides)]
-    n_iter = len(strides)
-    if selected is not None:
-        if not (cfg.selection == Selection.RANDOM and cfg.compact_queries):
-            raise ValueError("selected= replaces compacted RANDOM selection draws only")
-        k_cap = _compact_capacity(cap, cfg.selection_proba)
-        want = (b, n_iter, k_cap)
-        if tuple(selected[0].shape) != want or tuple(selected[1].shape) != want:
-            raise ValueError(f"selected arrays must be {want}")
-        selected = (torch.as_tensor(selected[0]).to(dev, torch.int32),
-                    torch.as_tensor(selected[1]).to(dev, torch.bool))
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(
-            seed if group is None else shard_seed(seed, shard_index))
+    with spans.call():
+        with spans.span("icp.prepare"):
+            dev = resolve_device(device)
+            sources, targets = sources.to(dev), targets.to(dev)
+            if kd_indexes is not None:
+                kd_indexes = kdtree.KDIndex(
+                    *(None if f is None else f.to(dev) for f in kd_indexes))
+            b, cap = sources.valid.shape
+            if init_poses is None:
+                init_poses = torch.eye(4, dtype=torch.float32, device=dev).expand(b, 4, 4)
+            pose = torch.as_tensor(init_poses, dtype=torch.float32).to(dev).contiguous()
+            if gt_source_points is None:
+                gt_src = torch.zeros((b, 1, 3), device=dev)
+                gt_tgt = torch.zeros((b, 1, 3), device=dev)
+                gtv = torch.ones((b, 1), dtype=torch.bool, device=dev)
+            else:
+                gt_src = torch.as_tensor(gt_source_points, dtype=torch.float32).to(dev)
+                gt_tgt = torch.as_tensor(gt_target_points, dtype=torch.float32).to(dev)
+                gtv = (torch.ones(gt_src.shape[:2], dtype=torch.bool, device=dev)
+                       if gt_valid is None else torch.as_tensor(gt_valid, dtype=torch.bool).to(dev))
+            if strides is None:
+                strides = cloud_lib.multires_stride_schedule(
+                    cap if num_source_points is None else num_source_points,
+                    cfg.n_iterations, cfg.multi_resolution, cfg.multi_resolution_min_points)
+            strides = [int(s) for s in np.asarray(strides)]
+            n_iter = len(strides)
+            if selected is not None:
+                if not (cfg.selection == Selection.RANDOM and cfg.compact_queries):
+                    raise ValueError("selected= replaces compacted RANDOM selection draws only")
+                k_cap = _compact_capacity(cap, cfg.selection_proba)
+                want = (b, n_iter, k_cap)
+                if tuple(selected[0].shape) != want or tuple(selected[1].shape) != want:
+                    raise ValueError(f"selected arrays must be {want}")
+                selected = (torch.as_tensor(selected[0]).to(dev, torch.int32),
+                            torch.as_tensor(selected[1]).to(dev, torch.bool))
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(
+                    seed if group is None else shard_seed(seed, shard_index))
 
-    target_index = feats = None
-    if cfg.matching == Matching.KNN:
-        feats = (knn.color_features(targets.points, targets.colors) if cfg.color_icp
-                 else targets.points)
-        target_index = knn.build_target_index(feats, tile_t=knn.V2_TILE_T)
-    src_table = _fuse_cloud_table(sources)
-    tgt_table = _fuse_cloud_table(targets)
+            target_index = feats = None
+            if cfg.matching == Matching.KNN:
+                feats = (knn.color_features(targets.points, targets.colors) if cfg.color_icp
+                         else targets.points)
+                target_index = knn.build_target_index(feats, tile_t=knn.V2_TILE_T)
+            src_table = _fuse_cloud_table(sources)
+            tgt_table = _fuse_cloud_table(targets)
 
-    cache, seeded, emit_blocks = None, False, False
-    if (kd_indexes is not None and _membership_applies(cfg)
-            and knn.resident_fits(kd_indexes.pages.shape[1], kd_indexes.pages.shape[-1])):
-        seeded, emit_blocks = membership_seed is not None, True
-        if seeded:
-            cache = torch.as_tensor(membership_seed).to(dev, torch.int32)
-            if tuple(cache.shape) != (b, cap):
-                raise ValueError(f"membership_seed must be {(b, cap)}, got {tuple(cache.shape)}")
-        else:
-            cache = torch.full((b, cap), -1, dtype=torch.int32, device=dev)
-    elif kd_indexes is not None and _warm_applies(cfg):
-        n_granules = -(-cap // cfg.kd_warm_granule)
-        cache = torch.full((b, n_granules), -1, dtype=torch.int32, device=dev)
-    rmse = torch.empty((b, n_iter), dtype=torch.float32, device=dev)
-    bench = torch.empty_like(rmse)
-    num_matches = torch.empty((b, n_iter), dtype=torch.int32, device=dev)
-    # Anderson acceleration: a fresh mixing state per call (so per level of
-    # the segmented driver), one per pair; anderson_m == 0 keeps the plain
-    # fixed-point iteration.
-    aa = anderson.init_like(cfg.anderson_m, pose) if cfg.anderson_m > 0 else None
-    for t, stride in enumerate(strides):
-        new_pose, rmse[:, t], bench[:, t], num_matches[:, t], cache = _iteration(
-            cfg, sources, targets, pose, stride, generator, selected, t,
-            gt_src, gt_tgt, gtv, run_benchmark, target_index, kd_indexes,
-            src_table, tgt_table, cache, seeded, feats, stop_after=stop_after,
-            group=group, shard_index=shard_index,
-        )
-        if aa is not None:
-            # The trace holds the plain step's pose (the fixed-point
-            # evaluation); the carried pose is the mixed one. The mixing is
-            # elementwise on the pose, the same on every rank of a group.
-            aa, x_next = anderson.step(aa, anderson.pose_to_vec(pose),
-                                       anderson.pose_to_vec(new_pose), cfg.anderson_m)
-            new_pose = anderson.vec_to_pose(x_next)
-        pose = new_pose
-    return ICPResult(pose=pose, trace=ICPTrace(rmse=rmse, benchmark=bench, num_matches=num_matches),
-                     match_blocks=cache if emit_blocks else None)
+            cache, seeded, emit_blocks = None, False, False
+            if (kd_indexes is not None and _membership_applies(cfg)
+                    and knn.resident_fits(kd_indexes.pages.shape[1], kd_indexes.pages.shape[-1])):
+                seeded, emit_blocks = membership_seed is not None, True
+                if seeded:
+                    cache = torch.as_tensor(membership_seed).to(dev, torch.int32)
+                    if tuple(cache.shape) != (b, cap):
+                        raise ValueError(f"membership_seed must be {(b, cap)}, "
+                                         f"got {tuple(cache.shape)}")
+                else:
+                    cache = torch.full((b, cap), -1, dtype=torch.int32, device=dev)
+            elif kd_indexes is not None and _warm_applies(cfg):
+                n_granules = -(-cap // cfg.kd_warm_granule)
+                cache = torch.full((b, n_granules), -1, dtype=torch.int32, device=dev)
+            rmse = torch.empty((b, n_iter), dtype=torch.float32, device=dev)
+            bench = torch.empty_like(rmse)
+            num_matches = torch.empty((b, n_iter), dtype=torch.int32, device=dev)
+            # Anderson acceleration: a fresh mixing state per call (so per level
+            # of the segmented pyramid), one per pair; anderson_m == 0 keeps the
+            # plain fixed-point iteration.
+            aa = anderson.init_like(cfg.anderson_m, pose) if cfg.anderson_m > 0 else None
+        trace = ICPTrace(rmse=rmse, benchmark=bench, num_matches=num_matches)
+        for t, stride in enumerate(strides):
+            new_pose, cache = _iteration(
+                cfg, sources, targets, pose, stride, generator, selected, t,
+                gt_src, gt_tgt, gtv, run_benchmark, target_index, kd_indexes,
+                src_table, tgt_table, cache, seeded, feats, trace, stop_after=stop_after,
+                group=group, shard_index=shard_index,
+            )
+            if aa is not None:
+                # The trace holds the plain step's pose (the fixed-point
+                # evaluation); the carried pose is the mixed one. The mixing is
+                # elementwise on the pose, the same on every rank of a group.
+                with spans.span("icp.anderson"):
+                    aa, x_next = anderson.step(aa, anderson.pose_to_vec(pose),
+                                               anderson.pose_to_vec(new_pose), cfg.anderson_m)
+                    new_pose = anderson.vec_to_pose(x_next)
+            pose = new_pose
+        return ICPResult(pose=pose, trace=trace, match_blocks=cache if emit_blocks else None)
 
 
 def run_icp(
@@ -792,41 +818,46 @@ def run_icp_batch_multires_segmented(
         return run_icp_batch(cfg, sources, targets, init_poses, seed=seed,
                              num_source_points=num_source_points, kd_indexes=kd_indexes,
                              device=device, **common)
-    dev = resolve_device(device)
-    sources, targets = sources.to(dev), targets.to(dev)
-    if kd_indexes is not None:
-        kd_indexes = kdtree.KDIndex(*(None if f is None else f.to(dev) for f in kd_indexes))
-    if num_source_points is None:
-        num_source_points = sources.capacity
-    strides = cloud_lib.multires_stride_schedule(
-        num_source_points, cfg.n_iterations, True, cfg.multi_resolution_min_points)
-    protect = 2 if _membership_applies(cfg) else 0
-    segments = _plan_segments(_stride_groups(strides), num_source_points, protect_tail=protect)
-    poses, traces = init_poses, []
-    blk, prev_stride, res = None, None, None
-    for li, seg in enumerate(segments):
-        s_min = seg[-1][0]
-        n_it = sum(c for _, c in seg)
-        src_l = _slice_clouds_stride(sources, s_min)
-        if len(seg) == 1:
-            cfg_l = cfg.replace(multi_resolution=False, n_iterations=n_it)
-            seg_strides = None
-        else:
-            cfg_l = cfg.replace(multi_resolution=True, n_iterations=n_it)
-            seg_strides = np.concatenate([np.full(c, s // s_min, np.int32) for s, c in seg])
-        level_seed = None
-        if (blk is not None and prev_stride <= SEED_MAX_PARENT_STRIDE
-                and _membership_applies(cfg_l)):
-            level_seed = _level_seed(blk, s_min, prev_stride, src_l.capacity)
-        res = run_icp_batch(cfg_l, src_l, targets, poses, seed=seed + li,
-                            kd_indexes=kd_indexes, membership_seed=level_seed,
-                            strides=seg_strides, device=dev, **common)
-        poses = res.pose
-        traces.append(res.trace)
-        if res.match_blocks is not None:
-            blk, prev_stride = res.match_blocks, s_min
-    trace = ICPTrace(*(torch.cat(xs, dim=1) for xs in zip(*traces)))
-    return ICPResult(pose=poses, trace=trace, match_blocks=res.match_blocks)
+    with spans.call():
+        with spans.span("icp.prepare"):
+            dev = resolve_device(device)
+            sources, targets = sources.to(dev), targets.to(dev)
+            if kd_indexes is not None:
+                kd_indexes = kdtree.KDIndex(
+                    *(None if f is None else f.to(dev) for f in kd_indexes))
+            if num_source_points is None:
+                num_source_points = sources.capacity
+            strides = cloud_lib.multires_stride_schedule(
+                num_source_points, cfg.n_iterations, True, cfg.multi_resolution_min_points)
+            protect = 2 if _membership_applies(cfg) else 0
+            segments = _plan_segments(_stride_groups(strides), num_source_points,
+                                      protect_tail=protect)
+        poses, traces = init_poses, []
+        blk, prev_stride, res = None, None, None
+        for li, seg in enumerate(segments):
+            s_min = seg[-1][0]
+            n_it = sum(c for _, c in seg)
+            if len(seg) == 1:
+                cfg_l = cfg.replace(multi_resolution=False, n_iterations=n_it)
+                seg_strides = None
+            else:
+                cfg_l = cfg.replace(multi_resolution=True, n_iterations=n_it)
+                seg_strides = np.concatenate([np.full(c, s // s_min, np.int32) for s, c in seg])
+            with spans.span("icp.level"):
+                src_l = _slice_clouds_stride(sources, s_min)
+                level_seed = None
+                if (blk is not None and prev_stride <= SEED_MAX_PARENT_STRIDE
+                        and _membership_applies(cfg_l)):
+                    level_seed = _level_seed(blk, s_min, prev_stride, src_l.capacity)
+            res = run_icp_batch(cfg_l, src_l, targets, poses, seed=seed + li,
+                                kd_indexes=kd_indexes, membership_seed=level_seed,
+                                strides=seg_strides, device=dev, **common)
+            poses = res.pose
+            traces.append(res.trace)
+            if res.match_blocks is not None:
+                blk, prev_stride = res.match_blocks, s_min
+        trace = ICPTrace(*(torch.cat(xs, dim=1) for xs in zip(*traces)))
+        return ICPResult(pose=poses, trace=trace, match_blocks=res.match_blocks)
 
 
 def run_icp_multires_segmented(

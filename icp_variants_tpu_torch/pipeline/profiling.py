@@ -20,14 +20,16 @@ ICPOptimizer.h:245-302):
   stages' times against the work that :func:`matcher_work_model` counts
   from the real iteration-0 queries; :func:`fused_report` prints them all.
 * :func:`trace` records a ``torch.profiler`` trace of whatever runs inside
-  it and writes it as a Chrome trace.
+  it, with the ICP loop's spans, and writes it as a Chrome trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import math
 import os
+import threading
 import time
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -42,6 +44,7 @@ from icp_variants_tpu_torch.ops import kdtree, knn, projective, rejection, selec
 from icp_variants_tpu_torch.pipeline import icp as icp_mod
 from icp_variants_tpu_torch.pipeline.config import ICPConfig, Matching, Metric, Selection
 from icp_variants_tpu_torch.pipeline.icp import _solve
+from icp_variants_tpu_torch.runtime import spans
 
 
 @dataclass
@@ -213,16 +216,39 @@ def profile_stages(
 def trace(log_dir: str):
     """``torch.profiler`` trace (CPU, and the card's kernels where there is
     one) of the block's work, written to ``log_dir/trace.json`` as a
-    Chrome trace; yields the profiler."""
+    Chrome trace; yields the profiler. The ICP loop's spans
+    (:mod:`~icp_variants_tpu_torch.runtime.spans`) are recorded over the
+    block and written into the same file as complete events of category
+    ``icp_span`` on the thread that ran the block, on the profiler's time
+    base, so Perfetto shows each stage above the operators and kernels it
+    launched."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    path = os.path.join(log_dir, "trace.json")
+    with spans.recording() as rec, torch.profiler.profile(activities=activities) as prof:
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    prof.export_chrome_trace(path)
+    _add_spans(path, rec.spans, threading.get_native_id())
+
+
+def _add_spans(path: str, recorded, tid: int) -> None:
+    """Append ``recorded`` spans to the Chrome trace at ``path`` as complete
+    events on thread ``tid``: microseconds from the file's
+    ``baseTimeNanoseconds``, as the profiler writes its own events."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = doc.get("baseTimeNanoseconds", 0)
+    doc["traceEvents"].extend(
+        {"ph": "X", "cat": "icp_span", "name": s.name, "pid": os.getpid(), "tid": tid,
+         "ts": (s.t0_ns - base) / 1e3, "dur": (s.t1_ns - s.t0_ns) / 1e3,
+         "args": {"call": s.call, "parent": s.parent}}
+        for s in recorded)
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 # ---------------------------------------------------------------------------

@@ -117,7 +117,7 @@ def _launch(fn, q, sel, binit, pages):
     ws_bytes = kdtree._block_search_workspace_bytes(b, n, nc, k)
     ws = torch.empty(ws_bytes, dtype=torch.uint8, device=q.device)
     err = fn(q.data_ptr(), sel.data_ptr(), binit.data_ptr(), pages.data_ptr(), d2.data_ptr(),
-             idx.data_ptr(), ws.data_ptr(), ws_bytes, b, n, nc, cap_pad, k, 0, d,
+             idx.data_ptr(), ws.data_ptr(), ws_bytes, b, n, nc, cap_pad, k, 0, None, d,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"kd_block_search variant failed to launch ({err})")

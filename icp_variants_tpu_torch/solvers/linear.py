@@ -17,6 +17,9 @@ Row layouts per match (weights fold in mask * per-match weight):
 
 The GICP whiteners are closed-form 3x3 inverses and Cholesky factors,
 elementwise over the matches: no cuSOLVER call, so no host sync.
+
+The normal-equation products run in the ``icp.reduce`` span of
+:mod:`icp_variants_tpu_torch.runtime.spans`.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from icp_variants_tpu_torch.core import se3
 from icp_variants_tpu_torch.parallel.distributed import psum_many
+from icp_variants_tpu_torch.runtime import spans
 
 LAMBDA_POINT = 0.1       # ICPOptimizer.h:737
 LAMBDA_PLANE = 1.0       # ICPOptimizer.h:738
@@ -53,10 +57,11 @@ def _accumulate_normal_equations(
     """``A^T A`` and ``A^T b`` of the weighted rows (each residual weighted
     by ``row_w^2``) as one batched product over the N * R rows; with
     ``group`` (N split over its ranks) summed across them."""
-    wr = (rows * row_w[..., None]).flatten(-3, -2)
-    wb = (rhs * row_w).flatten(-2, -1)
-    ata, atb = psum_many(
-        (wr.transpose(-1, -2) @ wr, (wr.transpose(-1, -2) @ wb[..., None])[..., 0]), group)
+    with spans.span("icp.reduce"):
+        wr = (rows * row_w[..., None]).flatten(-3, -2)
+        wb = (rhs * row_w).flatten(-2, -1)
+        ata, atb = psum_many(
+            (wr.transpose(-1, -2) @ wr, (wr.transpose(-1, -2) @ wb[..., None])[..., 0]), group)
     return ata, atb
 
 
@@ -80,19 +85,20 @@ def _accumulate_normal_equations_soa(row_specs, group=None) -> tuple[torch.Tenso
     ``group`` (N split over its ranks) the (..., 6, 6) and (..., 6) sums are
     summed across them in one collective."""
     ata = atb = None
-    for cols, rhs, w in row_specs:
-        ref = rhs
-        J = torch.stack([
-            torch.zeros_like(ref) if c is None
-            else (torch.full_like(ref, c) if isinstance(c, float) else c)
-            for c in cols
-        ], dim=-1)
-        wJ = (w * w)[..., None] * J
-        a = wJ.transpose(-1, -2) @ J
-        b = (wJ * rhs[..., None]).sum(dim=-2)
-        ata = a if ata is None else ata + a
-        atb = b if atb is None else atb + b
-    ata, atb = psum_many((ata, atb), group)
+    with spans.span("icp.reduce"):
+        for cols, rhs, w in row_specs:
+            ref = rhs
+            J = torch.stack([
+                torch.zeros_like(ref) if c is None
+                else (torch.full_like(ref, c) if isinstance(c, float) else c)
+                for c in cols
+            ], dim=-1)
+            wJ = (w * w)[..., None] * J
+            a = wJ.transpose(-1, -2) @ J
+            b = (wJ * rhs[..., None]).sum(dim=-2)
+            ata = a if ata is None else ata + a
+            atb = b if atb is None else atb + b
+        ata, atb = psum_many((ata, atb), group)
     return ata, atb
 
 

@@ -23,6 +23,7 @@ the JAX package itself. The profiler's increment: within atol 1e-5 of the
 JAX stage chain on the same mask."""
 
 import ctypes
+import json
 
 import jax
 import jax.numpy as jnp
@@ -48,6 +49,7 @@ from icp_variants_tpu_torch.ops import kdtree as tkd
 from icp_variants_tpu_torch.ops import knn as tknn
 from icp_variants_tpu_torch.pipeline import config as tconfig
 from icp_variants_tpu_torch.pipeline import profiling as tprof
+from icp_variants_tpu_torch.runtime import spans
 
 torch.set_num_threads(2)
 
@@ -507,8 +509,15 @@ def test_profile_stages_matches_jax(name):
 
 def test_trace_writes_chrome_trace(tmp_path):
     with tprof.trace(str(tmp_path / "t")):
-        tknn.nn_search(torch.zeros(8, 3), torch.ones(16, 3))
-    assert (tmp_path / "t" / "trace.json").stat().st_size > 0
+        with spans.span("icp.matching"):
+            tknn.nn_search(torch.zeros(8, 3), torch.ones(16, 3))
+    path = tmp_path / "t" / "trace.json"
+    assert path.stat().st_size > 0
+    events = json.loads(path.read_text())["traceEvents"]
+    mine = [e for e in events if e.get("cat") == "icp_span"]
+    assert [e["name"] for e in mine] == ["icp.matching"]
+    ops = [e for e in events if e.get("cat") == "cpu_op" and e["tid"] == mine[0]["tid"]]
+    assert ops and all(mine[0]["ts"] <= e["ts"] <= mine[0]["ts"] + mine[0]["dur"] for e in ops)
 
 
 # ---------------------------------------------------------------------------
