@@ -8,7 +8,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, in order; any failure exits nonzero:
 
 1. Set-up: fail at once without a CUDA device; TF32 off for matmul and
-   cuDNN; the card's name and power limit; build the nine kernels from
+   cuDNN; the card's name and power limit; build the ten kernels from
    ``icp_variants_tpu_torch/csrc`` (nvcc, one per source in parallel) and
    print the time.
 2. ETH kernels (D = 3): each kernel against its plain PyTorch version at
@@ -52,8 +52,9 @@ Phases, in order; any failure exits nonzero:
    target features, and the fixed point: one more stride-1 step at each
    arm's final pose, solved in f64 on the same matches, must barely move
    any frame. Two probes read the gates' reach: the checks16 arm with TF32
-   in the normal-equation product, and with a planted fault in the seeded
-   search, which must cross a gate.
+   on (since ``csrc/normal_equations.cu`` sums the normal equations in f32,
+   TF32 reaches only the pose products), and with a planted fault in the
+   seeded search, which must cross a gate.
 5. The projective path: the projective RGB-D tracker (the JAX package's
    ``bench.bench_tum_projective`` and the room run's solver): frames 1-8
    stride-8 compacted (38,400 rows) tracked against frame 0 kept
@@ -71,6 +72,15 @@ Phases, in order; any failure exits nonzero:
    more step at the final pose, solved in f64 -- scipy's least_squares for
    the LM arm -- within a gate set from the card's readings). A planted
    fault (every 8th match moved one pixel along its row) must cross both.
+5b. The linear solvers' normal equations (``csrc/normal_equations.cu``)
+   at the colour (8 x 307,200 rows, point-to-plane), projective (64 x
+   38,400, point-to-plane) and ETH (176 x 4,352, symmetric) shapes, on
+   synthetic rows with NaN and inf normals, zero weights and invalid rows:
+   against a float64 sum of the same rows (gated at 1e-5 of the terms'
+   magnitudes), two launches equal bit for bit, its ms a launch (queued
+   CUDA events, and the profiler's kernel time) beside its byte bound, the
+   plain version on the card (column stacks and batched cuBLAS products)
+   and those products alone (``library_ms``).
 6. The dense exact path past the resident rule: 4 pairs of 1,000,000-point
    indoor scans (``bench.make_indoor_pairs``' scene, source and target
    sampled independently, ~70% overlap), symmetric linear ICP, SELECT_ALL,
@@ -255,6 +265,9 @@ N_TIMED_RUNS = 3
 # cores, and HBM bandwidth. Every f32 operation counts as one here.
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
+# Cycles the card sleeps before queued_ms' first timed call (~50 ms at the
+# H100's clock), so the host has queued them all when the timing starts.
+QUEUE_SLEEP_CYCLES = 90_000_000
 # Dense TF32 tensor-core peak of the same card (data sheet).
 PEAK_TF32_OPS = 495e12
 # Late in a long run (phase 7, eight minutes in) a profiled window of tens
@@ -786,6 +799,25 @@ def time_ms(fn, reps):
     return float(np.median(out))
 
 
+def queued_ms(fn, reps):
+    """CUDA-event ms a call of ``fn`` over ``reps`` calls queued behind a
+    sleeping kernel, after one warm-up call: the calls' device time back to
+    back, where a short kernel would otherwise be timed at the host's pace
+    of issue."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
 def plain_pass(fn, n, rows=PLAIN_CHUNK_ROWS):
     """``fn(s, e)`` over windows [s, e) of ``n`` rows, outputs joined along
     the row axis; returns them and the whole pass's CUDA-event ms."""
@@ -861,6 +893,7 @@ def main() -> int:
     rows_eth, launches_eth, eth = timed("2-3 ETH", eth_phase)
     rows_color, launches_color, colour = timed("4 colour", color_phase)
     rows_proj, launches_proj = timed("5 projective", projective_phase)
+    rows_ne = timed("5b normal equations", normal_equations_phase)
     rows_dense, launches_dense = timed("6 dense", dense_phase)
     rows_match, launches_match = timed("7 matchers", matcher_phase, colour)
     del colour
@@ -872,7 +905,7 @@ def main() -> int:
     print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}),
           flush=True)
     record(rows_eth, launches_eth,
-           {**rows_color, **rows_proj, **rows_dense, **rows_match, **rows_tool},
+           {**rows_color, **rows_proj, **rows_ne, **rows_dense, **rows_match, **rows_tool},
            collections.Counter(launches_color) + collections.Counter(launches_proj)
            + collections.Counter(launches_dense) + collections.Counter(launches_match)
            + launches_register + launches_entry, sharded)
@@ -1556,7 +1589,8 @@ def color_phase():
 
     # ---- the fixed point, and what the gates see of two faults ---------------
     # Each arm's final pose against one more step solved in f64; then the
-    # checks16 arm run again with TF32 in the normal-equation product, and
+    # checks16 arm run again with TF32 on (in the pose products only: the
+    # normal equations are the f32 kernel's), and
     # with a planted fault in the seeded search (every 8th row's match moved
     # to the next slot of its block), each read against the same gates.
     def fixed_point(arm, res):
@@ -1652,11 +1686,13 @@ def fixed_point_step(cfg, fine, targets, fidx, kd, result):
     if cfg.rejection:
         valid = rejection.normal_angle_mask(
             se3.transform_normals(fine.normals, pose), tgt[..., 3:6], valid)
+    # The f64 solve runs the plain version on the host: the card's solver
+    # sums in f32 (csrc/normal_equations.cu).
     d32, d64 = (linear.estimate_pose_point_to_plane(
-        pts.to(dt), tgt[..., :3].to(dt), tgt[..., 3:6].to(dt),
-        torch.ones(valid.shape, dtype=dt, device=valid.device), valid)
-        for dt in (torch.float32, torch.float64))
-    return float(d64[:, :3, 3].abs().max()), float((d32.double() - d64).abs().max())
+        pts.to(dev, dt), tgt[..., :3].to(dev, dt), tgt[..., 3:6].to(dev, dt),
+        torch.ones(valid.shape, dtype=dt, device=dev), valid.to(dev))
+        for dev, dt in ((pts.device, torch.float32), ("cpu", torch.float64)))
+    return float(d64[:, :3, 3].abs().max()), float((d32.cpu().double() - d64).abs().max())
 
 
 def projective_state(device):
@@ -1997,11 +2033,13 @@ def projective_fixed_point(cfg, sources, targets, pose):
         valid = rejection.normal_angle_mask(src_n, tgt[..., 3:6], valid)
     w = torch.ones(valid.shape, device=valid.device)
     if cfg.minimizer == Minimizer.LINEAR:
+        # The f64 solve runs the plain version on the host (fixed_point_step).
         d32, d64 = (linear.estimate_pose_point_to_plane(
-            q.to(dt), tgt[..., :3].to(dt), tgt[..., 3:6].to(dt), w.to(dt), valid)
-            for dt in (torch.float32, torch.float64))
+            q.to(dev, dt), tgt[..., :3].to(dev, dt), tgt[..., 3:6].to(dev, dt), w.to(dev, dt),
+            valid.to(dev))
+            for dev, dt in ((q.device, torch.float32), ("cpu", torch.float64)))
         return (d64[:, :3, 3].abs().amax(-1).tolist(),
-                float((d32.double() - d64).abs().max()))
+                float((d32.cpu().double() - d64).abs().max()))
     d32 = gauss_newton.estimate_pose_lm(
         cfg.metric, q, tgt[..., :3], src_n, tgt[..., 3:6], w, valid,
         max_iterations=cfg.lm_max_inner_iterations,
@@ -2023,6 +2061,205 @@ def projective_fixed_point(cfg, sources, targets, pose):
         steps.append(float(np.abs(x[3:]).max()))
         gap = max(gap, float(np.abs(d32[i] - inc).max()))
     return steps, gap
+
+
+# Phase 5b, the linear solvers' reduction (csrc/normal_equations.cu) at
+# the main paths' shapes: (label, pairs, rows a pair, metric).
+NE_SHAPES = (("colour", 8, 307_200, "plane"), ("projective", 64, 38_400, "plane"),
+             ("eth", 176, 4_352, "symmetric"))
+NE_REPS = 50
+NE_PLAIN_REPS = 5
+# Its f32 sums against the float64 sum of the same rows: within this share
+# of the sum of the terms' magnitudes, each row's factors taken at their
+# parts' magnitudes (so a rounded difference such as n.d - n.s counts at
+# its parts' size). Some 170 units of f32 rounding, against about 12
+# roundings in a term and sums about 30 additions deep (8 rows a thread,
+# 8 levels of a CTA's tree, 8 of the chunks'); all-zero terms sum to 0.
+NE_TOL = 1e-5
+
+
+def ne_rows(seed, b, n):
+    """(src, table, src_normals, weights, valid) numpy arrays of ``b``
+    pairs x ``n`` matches at the ETH sweep's 20 m scale: a smooth sheet
+    moved by a small rigid motion with noise, NaN target and inf source
+    normals, zero weights and invalid rows; the target points and normals
+    as columns 0-2 and 3-5 of a (B, N, 8) row table, as the pipeline
+    gathers them."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-20, 20, (b, n, 2))
+    z = 2.0 * np.sin(0.3 * xy[..., 0]) * np.cos(0.2 * xy[..., 1])
+    tgt = np.concatenate([xy, z[..., None]], -1)
+    nt = np.stack([-0.6 * np.cos(0.3 * xy[..., 0]) * np.cos(0.2 * xy[..., 1]),
+                   0.4 * np.sin(0.3 * xy[..., 0]) * np.sin(0.2 * xy[..., 1]),
+                   np.ones((b, n))], -1)
+    nt /= np.linalg.norm(nt, axis=-1, keepdims=True)
+    src = tgt + rng.normal(0, 0.1, (b, 1, 3)) + rng.normal(0, 0.01, (b, n, 3))
+    ns = nt + rng.normal(0, 0.01, (b, n, 3))
+    nt[:, ::13, 1] = np.nan
+    ns[:, 5::17, 2] = np.inf
+    weights = rng.uniform(0.0, 1.0, (b, n))
+    weights[:, ::11] = 0.0
+    valid = rng.random((b, n)) > 0.15
+    table = np.zeros((b, n, 8), np.float32)
+    table[..., :3], table[..., 3:6] = tgt, nt
+    return (src.astype(np.float32), table, ns.astype(np.float32),
+            weights.astype(np.float32), valid)
+
+
+def ne_solver_args(metric, arrays, device):
+    """``linear.normal_equations``' arguments on ``device`` from
+    :func:`ne_rows`' arrays: the target points and normals as views of the
+    row table, the centres the f32 matched means (the target's for both
+    under point-to-plane)."""
+    import torch
+
+    src, table, ns, weights, valid = arrays
+    w = valid.astype(np.float64)[..., None]
+    den = np.maximum(w.sum(1), 1e-12)
+    ct = ((table[..., :3] * w).sum(1) / den).astype(np.float32)
+    cs = ct if metric == "plane" else ((src * w).sum(1) / den).astype(np.float32)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+         for a in (src, table, ns, weights, valid, cs, ct)]
+    return (t[0], t[1][..., :3], t[1][..., 3:6], t[2] if metric == "symmetric" else None,
+            *t[3:])
+
+
+def ne_sums64(metric, args):
+    """Float64 ``(ata, atb)`` of the solvers' rows on ``args``
+    (:func:`ne_solver_args`' order), and the sums of the terms' magnitudes
+    the tolerance reads: numpy (B, 6, 6), (B, 6) each."""
+    src, tgt, tn, sn, weights, valid, cs, ct = (
+        None if a is None else a.cpu().numpy().astype(np.float64) for a in args)
+    s, d = src - cs[:, None], tgt - ct[:, None]
+    w = weights * valid
+    fin = np.isfinite(tn).all(-1)
+    nt = np.where(np.isfinite(tn), tn, 0.0)
+    if metric == "plane":
+        n, p = nt, s
+        rhs = (n * d).sum(-1) - (n * s).sum(-1)
+        rhs_mag = (np.abs(n * d) + np.abs(n * s)).sum(-1)
+    else:
+        n, p = np.where(np.isfinite(sn), sn, 0.0) + nt, s + d
+        fin = fin & np.isfinite(sn).all(-1)
+        rhs = ((d - s) * n).sum(-1)
+        rhs_mag = ((np.abs(d) + np.abs(s)) * np.abs(n)).sum(-1)
+
+    def cross(u, v, sign=-1.0):
+        return np.stack([u[..., 1] * v[..., 2] + sign * u[..., 2] * v[..., 1],
+                         u[..., 2] * v[..., 0] + sign * u[..., 0] * v[..., 2],
+                         u[..., 0] * v[..., 1] + sign * u[..., 1] * v[..., 0]], -1)
+
+    z, o = np.zeros_like(s[..., 0]), np.ones_like(s[..., 0])
+    point = [np.stack(r, -1) for r in ([z, s[..., 2], -s[..., 1], o, z, z],
+                                       [-s[..., 2], z, s[..., 0], z, o, z],
+                                       [s[..., 1], -s[..., 0], z, z, z, o])]
+    rows = [np.concatenate([cross(p, n), n], -1)] + point
+    mags = [np.concatenate([cross(np.abs(p), np.abs(n), 1.0), np.abs(n)], -1)]
+    mags += [np.abs(r) for r in point]
+    rhss = [rhs] + [d[..., k] - s[..., k] for k in range(3)]
+    rhs_mags = [rhs_mag] + [np.abs(d[..., k]) + np.abs(s[..., k]) for k in range(3)]
+    from icp_variants_tpu_torch.solvers import linear
+
+    qs = [(linear.LAMBDA_PLANE * w * fin) ** 2] + [(linear.LAMBDA_POINT * w) ** 2] * 3
+
+    def total(spec, a_of, r_of):
+        return sum(np.einsum(spec, q, a, *([a] if r is None else [r]))
+                   for q, a, r in zip(qs, a_of, r_of))
+
+    return (total("bn,bni,bnj->bij", rows, [None] * 4),
+            total("bn,bni,bn->bi", rows, rhss),
+            total("bn,bni,bnj->bij", mags, [None] * 4),
+            total("bn,bni,bn->bi", mags, rhs_mags))
+
+
+def ne_gap(got, want, mag) -> tuple[float, float]:
+    """The largest absolute gap of the f32 sums ``got`` (a tensor) from the
+    float64 ``want``, and the largest gap as a share of its tolerance
+    (``NE_TOL`` x ``mag``; inf where a zero tolerance is missed)."""
+    got = got.double().cpu().numpy()
+    gap = np.abs(got - want)
+    allowed = NE_TOL * mag
+    share = np.where(allowed > 0, gap / np.where(allowed > 0, allowed, 1.0),
+                     np.where(gap > 0, np.inf, 0.0))
+    return float(gap.max()), float(share.max()) if np.isfinite(got).all() else float("inf")
+
+
+def normal_equations_phase() -> dict:
+    """Phase 5b: ``csrc/normal_equations.cu`` at the colour, projective and
+    ETH shapes (``NE_SHAPES``) on :func:`ne_rows`' data: ``ata`` and
+    ``atb`` against the float64 sum of the same rows within ``NE_TOL``,
+    two launches equal bit for bit, CUDA-event ms a launch (``queued_ms``;
+    the profiler's kernel time beside it) next to its byte bound, the plain
+    version on the card (the Jacobian columns and four
+    batched cuBLAS products, what the solvers ran before the kernel) and
+    those four ``bmm`` products alone on prebuilt Jacobians as
+    ``library_ms`` (timed only: the port never calls them). Returns the
+    kernel's row, the colour shapes' at the top, the others under their
+    labels."""
+    import torch
+
+    from icp_variants_tpu_torch.solvers import linear
+
+    print("phase 5b: the normal equations", flush=True)
+    dev = torch.device("cuda")
+    out = {}
+    for i, (label, b, n, metric) in enumerate(NE_SHAPES):
+        args = ne_solver_args(metric, ne_rows(100 + i, b, n), dev)
+        got = linear.normal_equations(*args)
+        again = linear.normal_equations(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+              f"normal_equations {label} ({b} x {n}, {metric}): two launches equal bit for bit")
+        a64, b64, amag, bmag = ne_sums64(metric, args)
+        (ea, sa), (eb, sb) = ne_gap(got[0], a64, amag), ne_gap(got[1], b64, bmag)
+        check(max(sa, sb) <= 1.0,
+              f"normal_equations {label}: ata and atb within {NE_TOL:g} of the terms' "
+              f"magnitudes of the float64 sum (largest share of the tolerance {max(sa, sb):.3f})")
+        ms = queued_ms(lambda: linear.normal_equations(*args), NE_REPS)
+        prof_ms = kernel_split(lambda: linear.normal_equations(*args), "normal_equations",
+                               ("kernel",), reps=NE_REPS)["kernel"]
+        src, tgt, tn, sn, w, v, cs, ct = args
+
+        def plain():
+            wv = w * v.to(w.dtype)
+            return linear._accumulate_normal_equations_soa(
+                linear._row_specs(src, tgt, tn, sn, wv, cs, ct))
+
+        plain_ms = time_ms(plain, NE_PLAIN_REPS)
+        wv = w * v.to(w.dtype)
+        jac = []
+        for cols, rhs, rw in linear._row_specs(src, tgt, tn, sn, wv, cs, ct):
+            J = torch.stack([torch.zeros_like(rhs) if c is None else
+                             (torch.full_like(rhs, c) if isinstance(c, float) else c)
+                             for c in cols], dim=-1)
+            jac.append(((rw * rw)[..., None] * J, J))
+
+        def products():
+            return [wj.transpose(-1, -2) @ j for wj, j in jac]
+
+        library_ms = time_ms(products, NE_PLAIN_REPS)
+        del jac
+        row_bytes = 4 * (3 * (4 if metric == "symmetric" else 3) + 1) + 1
+        nbytes = b * n * row_bytes + b * 4 * (6 + 36 + 6)
+        nops = b * n * 160  # f32 operations a row, about the same on either arm
+        bnd = bound(nbytes, nops)
+        out[label] = dict(
+            ms=ms, profiler_ms=prof_ms, plain_ms=plain_ms, library_ms=library_ms, bound=bnd,
+            err=max(ea, eb),
+            tol_share=max(sa, sb), shapes=dict(pairs=b, rows=n, metric=metric,
+                                               chunk_rows=linear.normal_equation_chunks(n)[0],
+                                               chunks=linear.normal_equation_chunks(n)[1]),
+            plain_on="every row, on the card (column stacks and cuBLAS bmm)")
+        print(f"  normal_equations {label} ({b} x {n}, {metric}): {ms:.4f} ms a launch "
+              f"(queued CUDA events; the profiler's kernel time {prof_ms:.4f}), bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}, {nbytes / 1e6:.1f} MB), {bnd[0] / ms:.1%} of it; "
+              f"plain {plain_ms:.4f} ms, cuBLAS bmm alone {library_ms:.4f} ms; largest gap "
+              f"from the float64 sum {max(ea, eb):.3e} ({max(sa, sb):.3f} of the tolerance)",
+              flush=True)
+    row = dict(out["colour"])
+    row.update({k: v for k, v in out.items() if k != "colour"})
+    row["err"] = max(r["err"] for r in out.values())
+    return {"normal_equations": row}
 
 
 def dense_queries(sources, pose):
@@ -4441,6 +4678,9 @@ def record(rows_eth, launches_eth, rows, launches, sharded) -> None:
                              "icp_variants_tpu/ops/knn.py:360"),
         "visited_ablate": ("icp_variants_tpu_torch/csrc/visited_ablate.cu",
                            "scripts/knn_ablate.py:37 (pallas_call at :210)"),
+        "normal_equations": ("icp_variants_tpu_torch/csrc/normal_equations.cu",
+                             "none: the JAX package leaves the solvers' normal equations to "
+                             "XLA (icp_variants_tpu/solvers/linear.py)"),
     }
     kernels = []
     for name, (src, replaces) in sources_of.items():
@@ -4509,6 +4749,16 @@ def record(rows_eth, launches_eth, rows, launches, sharded) -> None:
                                   bound_by=r["bound"][1], shapes=r["shapes"],
                                   visited_cells=r["visited_cells"], split_ms=r["split_ms"],
                                   rescans=r["rescans"])
+        if name == "normal_equations":
+            entry.update(library_ms=c["library_ms"], profiler_ms=c["profiler_ms"],
+                         tol_share=max(r["tol_share"] for r in (c, c["projective"], c["eth"])),
+                         library="four cuBLAS bmm (wJ^T J) on prebuilt (B, N, 6) Jacobians")
+            for key in ("projective", "eth"):
+                r = c[key]
+                entry[key] = dict(ms=r["ms"], profiler_ms=r["profiler_ms"],
+                                  plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                                  bound_ms=r["bound"][0], bound_by=r["bound"][1],
+                                  max_abs_err=r["err"], shapes=r["shapes"])
         if name == "projective_window_search":
             entry["mode"] = "pixel_window"
             entry["split_ms"] = c["split_ms"]

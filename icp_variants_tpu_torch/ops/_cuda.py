@@ -51,7 +51,9 @@ KERNEL_DIMS = (3, 6)
 # kd_block_search and visited_search take, just before D, the work counters
 # they add to (null: none; runtime/spans.py).
 # dense_nn_search and pruned_nn_search are two entries of one source;
-# visited_ablate is the measurement kernel of scripts/knn_ablate.py.
+# visited_ablate is the measurement kernel of scripts/knn_ablate.py;
+# normal_equations (solvers/linear.py) is the linear solvers' reduction, on
+# f32 rows whatever D.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "box_topk": ("box_topk.cu", "box_topk_launch", [_P] * 6 + [_I] * 5 + [_P]),
@@ -79,6 +81,9 @@ KERNELS = {
     "visited_ablate": (
         "visited_ablate.cu", "visited_ablate_launch",
         [_P] * 6 + [_F] + [_P] * 2 + [_I] * 6 + [_P]),
+    "normal_equations": (
+        "normal_equations.cu", "normal_equations_launch",
+        [_P] * 4 + [ctypes.c_longlong] * 8 + [_P] * 8 + [_I] * 3 + [_F] * 2 + [_I, _P]),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

@@ -18,7 +18,12 @@ Row layouts per match (weights fold in mask * per-match weight):
 The GICP whiteners are closed-form 3x3 inverses and Cholesky factors,
 elementwise over the matches: no cuSOLVER call, so no host sync.
 
-The normal-equation products run in the ``icp.reduce`` span of
+The point-to-plane and symmetric normal equations are one launch of the
+kernel ``csrc/normal_equations.cu`` an iteration on a CUDA tensor
+(:func:`normal_equations_cuda`), which reads the match arrays once and
+builds each row in registers; on a CPU tensor the plain version builds the
+Jacobian columns and sums them (:func:`_accumulate_normal_equations_soa`).
+The sums run in the ``icp.reduce`` span of
 :mod:`icp_variants_tpu_torch.runtime.spans`.
 """
 
@@ -27,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from icp_variants_tpu_torch.core import se3
+from icp_variants_tpu_torch.ops import _cuda
 from icp_variants_tpu_torch.parallel.distributed import psum_many
 from icp_variants_tpu_torch.runtime import spans
 
@@ -102,6 +108,158 @@ def _accumulate_normal_equations_soa(row_specs, group=None) -> tuple[torch.Tenso
     return ata, atb
 
 
+# Rows of one pair a CTA of csrc/normal_equations.cu sums at most, and its
+# threads a CTA (a chunk's rows are a multiple of them).
+NE_CHUNK_ROWS = 2048
+NE_THREADS = 256
+_NE_SUMS = 27          # ata's upper triangle and atb, a chunk's partial sums
+# Per device, the kernel's int counter a pair: 0 between launches (the
+# kernel sets each back), grown as a batch needs.
+_ne_counters: dict[torch.device, torch.Tensor] = {}
+
+
+def _row_specs(src, tgt, tgt_normals, src_normals, w, center_src, center_tgt):
+    """The rows of the linear point-to-plane solve (``src_normals`` None)
+    or of the symmetric solve, about the given centres, as
+    :func:`_accumulate_normal_equations_soa`'s column specs: the plane or
+    symmetric row (ICPOptimizer.h:698-710, 809-815), then the three point
+    rows. ``w`` folds in the mask."""
+    s = src - center_src[..., None, :]
+    d = tgt - center_tgt[..., None, :]
+    nt = torch.where(torch.isfinite(tgt_normals), tgt_normals, 0.0)
+    finite_n = torch.isfinite(tgt_normals).all(dim=-1)
+    if src_normals is None:
+        n = nt
+        cols = [
+            n[..., 2] * s[..., 1] - n[..., 1] * s[..., 2],
+            n[..., 0] * s[..., 2] - n[..., 2] * s[..., 0],
+            n[..., 1] * s[..., 0] - n[..., 0] * s[..., 1],
+            n[..., 0], n[..., 1], n[..., 2],
+        ]
+        rhs = torch.sum(n * d, dim=-1) - torch.sum(n * s, dim=-1)
+        lam = LAMBDA_PLANE
+    else:
+        ns = torch.where(torch.isfinite(src_normals), src_normals, 0.0)
+        finite_n = finite_n & torch.isfinite(src_normals).all(dim=-1)
+        n = ns + nt
+        sd = s + d
+        cols = [
+            sd[..., 1] * n[..., 2] - sd[..., 2] * n[..., 1],
+            sd[..., 2] * n[..., 0] - sd[..., 0] * n[..., 2],
+            sd[..., 0] * n[..., 1] - sd[..., 1] * n[..., 0],
+            n[..., 0], n[..., 1], n[..., 2],
+        ]
+        rhs = torch.sum((d - s) * n, dim=-1)
+        lam = LAMBDA_SYMMETRIC
+    specs = [(cols, rhs, lam * w * finite_n.to(src.dtype))]
+    return specs + _point_row_specs(s, d, LAMBDA_POINT * w)
+
+
+def normal_equation_chunks(n: int) -> tuple[int, int]:
+    """``(rows a chunk, chunks a pair)`` of :func:`normal_equations_cuda`
+    for ``n`` rows a pair: as few chunks as hold NE_CHUNK_ROWS rows each,
+    their rows evened out to a multiple of NE_THREADS (at least one chunk).
+    A function of ``n`` alone, so a pair's sums are taken in the same order
+    whatever the batch it is in."""
+    chunks = max(1, -(-n // NE_CHUNK_ROWS))
+    rows = max(1, -(-n // (chunks * NE_THREADS))) * NE_THREADS
+    return rows, max(1, -(-n // rows))
+
+
+def _check_operand(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+                   rows: bool = False) -> None:
+    """Raise unless ``t`` has ``dtype`` and ``shape`` and is contiguous
+    (with ``rows``: along its last axis only, so the rows of a wider table
+    pass)."""
+    if t.dtype != dtype:
+        raise ValueError(f"normal_equations: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"normal_equations: {name} must have shape {shape}, "
+                         f"got {tuple(t.shape)}")
+    if not (t.stride(-1) == 1 if rows else t.is_contiguous()):
+        raise ValueError(f"normal_equations: {name} must be contiguous"
+                         + (" along its last axis" if rows else ""))
+
+
+def _require_cuda(*ts) -> None:
+    """Raise unless every tensor given (None aside) lies on a CUDA device."""
+    for t in ts:
+        if t is not None and not t.is_cuda:
+            raise ValueError(f"normal_equations: expected CUDA tensors, got {t.device}")
+
+
+def normal_equations_cuda(
+    src: torch.Tensor,                  # (B, N, 3) f32
+    tgt: torch.Tensor,                  # (B, N, 3) f32
+    tgt_normals: torch.Tensor,          # (B, N, 3) f32
+    src_normals: torch.Tensor | None,   # (B, N, 3) f32, or None: point-to-plane
+    weights: torch.Tensor,              # (B, N) f32
+    valid: torch.Tensor,                # (B, N) bool
+    center_src: torch.Tensor,           # (B, 3) f32
+    center_tgt: torch.Tensor,           # (B, 3) f32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(ata, atb)``, (B, 6, 6) and (B, 6), of :func:`_row_specs`'s rows
+    with ``w = weights * valid``, by one launch of
+    ``csrc/normal_equations.cu`` on the current stream. The (B, N, 3)
+    arrays may be the rows of wider tables (any strides but a contiguous
+    last axis); the rest contiguous. Raises before the launch on any other
+    dtype, shape, layout or device (the device last)."""
+    b, n = src.shape[0], src.shape[1]
+    symmetric = src_normals is not None
+    for name, t in (("src", src), ("tgt", tgt), ("tgt_normals", tgt_normals),
+                    ("src_normals", src_normals)):
+        if t is not None:
+            _check_operand(name, t, torch.float32, (b, n, 3), rows=True)
+    _check_operand("weights", weights, torch.float32, (b, n))
+    _check_operand("valid", valid, torch.bool, (b, n))
+    _check_operand("center_src", center_src, torch.float32, (b, 3))
+    _check_operand("center_tgt", center_tgt, torch.float32, (b, 3))
+    _require_cuda(src, tgt, tgt_normals, src_normals, weights, valid, center_src, center_tgt)
+    dev = src.device
+    rows, chunks = normal_equation_chunks(n)
+    counters = _ne_counters.get(dev)
+    if counters is None or counters.numel() < b:
+        counters = _ne_counters[dev] = torch.zeros(max(b, 256), dtype=torch.int32, device=dev)
+    partials = torch.empty((b, chunks, _NE_SUMS), dtype=torch.float32, device=dev)
+    ata = torch.empty((b, 6, 6), dtype=torch.float32, device=dev)
+    atb = torch.empty((b, 6), dtype=torch.float32, device=dev)
+    _cuda.launch(
+        "normal_equations", src, tgt, tgt_normals, src_normals, *src.stride()[:2],
+        *tgt.stride()[:2], *tgt_normals.stride()[:2],
+        *(src_normals.stride()[:2] if symmetric else (0, 0)),
+        weights, valid, center_src, center_tgt, partials, counters, ata, atb, b, n, rows,
+        LAMBDA_SYMMETRIC if symmetric else LAMBDA_PLANE, LAMBDA_POINT,
+        int(symmetric))  # the kernel's NE_PLANE = 0, NE_SYMMETRIC = 1
+    return ata, atb
+
+
+def normal_equations(src, tgt, tgt_normals, src_normals, weights, valid, center_src,
+                     center_tgt, group=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(ata, atb)``, (..., 6, 6) and (..., 6): the normal equations of the
+    linear point-to-plane solve (``src_normals`` None) or the symmetric
+    solve, its rows (:func:`_row_specs`) taken about ``center_src`` and
+    ``center_tgt`` (..., 3); with ``group`` (N split over its ranks) summed
+    across them. A CPU tensor runs the plain version, the rows as columns
+    summed by :func:`_accumulate_normal_equations_soa`; a CUDA tensor the
+    kernel, :func:`normal_equations_cuda` (f32)."""
+    if src.device.type == "cpu":
+        w = weights * valid.to(src.dtype)
+        return _accumulate_normal_equations_soa(
+            _row_specs(src, tgt, tgt_normals, src_normals, w, center_src, center_tgt), group)
+    lead, n = src.shape[:-2], src.shape[-2]
+
+    def rows(t):
+        return None if t is None else t.reshape(-1, n, 3)
+
+    with spans.span("icp.reduce"):
+        ata, atb = normal_equations_cuda(
+            rows(src), rows(tgt), rows(tgt_normals), rows(src_normals),
+            weights.reshape(-1, n).contiguous(), valid.reshape(-1, n).contiguous(),
+            center_src.reshape(-1, 3).contiguous(), center_tgt.reshape(-1, 3).contiguous())
+        ata, atb = psum_many((ata, atb), group)
+    return ata.reshape(*lead, 6, 6), atb.reshape(*lead, 6)
+
+
 def _eye6(like: torch.Tensor) -> torch.Tensor:
     return torch.eye(6, dtype=like.dtype, device=like.device)
 
@@ -121,22 +279,9 @@ def estimate_pose_point_to_plane(
     """Linearized point-to-plane solve, centred at the matched-target mean
     (an exact reparametrization); returns the (..., 4, 4) increment. Pose
     from Euler angles R = Rx(a) Ry(b) Rz(g) (ICPOptimizer.h:768-779)."""
-    w = weights * valid.to(src.dtype)
     center = se3.masked_mean(tgt, valid, group=group)
-    s = src - center[..., None, :]
-    d = tgt - center[..., None, :]
-    n = torch.where(torch.isfinite(tgt_normals), tgt_normals, 0.0)
-    finite_n = torch.isfinite(tgt_normals).all(dim=-1).to(src.dtype)
-    plane_cols = [
-        n[..., 2] * s[..., 1] - n[..., 1] * s[..., 2],
-        n[..., 0] * s[..., 2] - n[..., 2] * s[..., 0],
-        n[..., 1] * s[..., 0] - n[..., 0] * s[..., 1],
-        n[..., 0], n[..., 1], n[..., 2],
-    ]
-    plane_rhs = torch.sum(n * d, dim=-1) - torch.sum(n * s, dim=-1)
-    specs = [(plane_cols, plane_rhs, LAMBDA_PLANE * w * finite_n)]
-    specs += _point_row_specs(s, d, LAMBDA_POINT * w)
-    ata, atb = _accumulate_normal_equations_soa(specs, group)
+    ata, atb = normal_equations(src, tgt, tgt_normals, None, weights, valid, center, center,
+                                group)
     x = _solve6(ata + 1e-12 * _eye6(ata), atb)
     R = se3.euler_xyz_to_matrix(x[..., 0], x[..., 1], x[..., 2])
     pose_centered = se3.pose_matrix(R, x[..., 3:6])
@@ -159,28 +304,10 @@ def estimate_pose_symmetric(
     solve with Tikhonov 1e-4, recover the rotation from the
     a*tan(theta) parametrization and compose
     ``T(mu_t) . R . T(t) . R . T(-mu_s)``."""
-    w = weights * valid.to(src.dtype)
     mean_src = se3.masked_mean(src, valid, group=group)
     mean_tgt = se3.masked_mean(tgt, valid, group=group)
-    s = src - mean_src[..., None, :]
-    d = tgt - mean_tgt[..., None, :]
-    ns = torch.where(torch.isfinite(src_normals), src_normals, 0.0)
-    nt = torch.where(torch.isfinite(tgt_normals), tgt_normals, 0.0)
-    finite_n = (
-        torch.isfinite(src_normals).all(dim=-1) & torch.isfinite(tgt_normals).all(dim=-1)
-    ).to(src.dtype)
-    n_sum = ns + nt
-    sd = s + d
-    sym_cols = [
-        sd[..., 1] * n_sum[..., 2] - sd[..., 2] * n_sum[..., 1],
-        sd[..., 2] * n_sum[..., 0] - sd[..., 0] * n_sum[..., 2],
-        sd[..., 0] * n_sum[..., 1] - sd[..., 1] * n_sum[..., 0],
-        n_sum[..., 0], n_sum[..., 1], n_sum[..., 2],
-    ]
-    sym_rhs = torch.sum((d - s) * n_sum, dim=-1)
-    specs = [(sym_cols, sym_rhs, LAMBDA_SYMMETRIC * w * finite_n)]
-    specs += _point_row_specs(s, d, LAMBDA_POINT * w)
-    ata, atb = _accumulate_normal_equations_soa(specs, group)
+    ata, atb = normal_equations(src, tgt, tgt_normals, src_normals, weights, valid, mean_src,
+                                mean_tgt, group)
     x = _solve6(ata + (TIKHONOV_SYMMETRIC ** 2) * _eye6(ata), atb)
 
     a_tilde, t_tilde = x[..., :3], x[..., 3:6]
