@@ -81,6 +81,15 @@ Phases, in order; any failure exits nonzero:
    CUDA events, and the profiler's kernel time) beside its byte bound, the
    plain version on the card (column stacks and batched cuBLAS products)
    and those products alone (``library_ms``).
+5c. The linear solvers' tail (``csrc/pose_step.cu``: the 6 x 6 solve and
+   the increment's recovery) at the colour (8 pairs, point-to-plane),
+   projective (64, point-to-plane) and ETH (176, symmetric) batches, on
+   phase 5b's normal equations: the increment within 4 f32 ulps of each
+   entry's magnitude of the plain version run in float64 on the same f32
+   inputs, two launches equal bit for bit, its ms a launch (queued CUDA
+   events, and the profiler's kernel time; at most 10 us at the ETH batch)
+   beside the plain version on the card (its device ms queued, its host ms
+   a call and its kernels a call), and each side's host ms a call.
 6. The dense exact path past the resident rule: 4 pairs of 1,000,000-point
    indoor scans (``bench.make_indoor_pairs``' scene, source and target
    sampled independently, ~70% overlap), symmetric linear ICP, SELECT_ALL,
@@ -894,6 +903,7 @@ def main() -> int:
     rows_color, launches_color, colour = timed("4 colour", color_phase)
     rows_proj, launches_proj = timed("5 projective", projective_phase)
     rows_ne = timed("5b normal equations", normal_equations_phase)
+    rows_ps = timed("5c pose step", pose_step_phase)
     rows_dense, launches_dense = timed("6 dense", dense_phase)
     rows_match, launches_match = timed("7 matchers", matcher_phase, colour)
     del colour
@@ -905,7 +915,8 @@ def main() -> int:
     print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}),
           flush=True)
     record(rows_eth, launches_eth,
-           {**rows_color, **rows_proj, **rows_ne, **rows_dense, **rows_match, **rows_tool},
+           {**rows_color, **rows_proj, **rows_ne, **rows_ps, **rows_dense, **rows_match,
+            **rows_tool},
            collections.Counter(launches_color) + collections.Counter(launches_proj)
            + collections.Counter(launches_dense) + collections.Counter(launches_match)
            + launches_register + launches_entry, sharded)
@@ -2260,6 +2271,128 @@ def normal_equations_phase() -> dict:
     row.update({k: v for k, v in out.items() if k != "colour"})
     row["err"] = max(r["err"] for r in out.values())
     return {"normal_equations": row}
+
+
+# Phase 5c, the linear solvers' tail (csrc/pose_step.cu) at the three
+# cells' batches: (label, pairs, metric). The tail sees the batch alone;
+# its normal equations are summed from PS_ROWS rows a pair.
+PS_SHAPES = (("colour", 8, "plane"), ("projective", 64, "plane"), ("eth", 176, "symmetric"))
+PS_ROWS = 4_096
+PS_REPS = 200
+PS_PLAIN_REPS = 10
+# The kernel's increment against the plain version in float64
+# on the same f32 inputs, in f32 ulps of each entry's magnitude: the kernel
+# rounds its float64 answer once (half an ulp), the rest is float64
+# rounding.
+PS_ULPS = 4
+PS_MAX_MS = 0.010   # a launch at the ETH batch
+
+
+def ps_inputs(metric, b, seed, device):
+    """``linear.pose_step``'s operands but the recovery: ``(ata, atb,
+    center_src, center_tgt)`` of ``b`` pairs, the normal equations of
+    :func:`ne_rows`' matches (PS_ROWS a pair) about their centres."""
+    from icp_variants_tpu_torch.solvers import linear
+
+    args = ne_solver_args(metric, ne_rows(seed, b, PS_ROWS), device)
+    ata, atb = linear.normal_equations(*args)
+    return ata, atb, args[6], args[7]
+
+
+def ps_tail64(ata, atb, cs, ct, symmetric):
+    """The plain tail (``linear._plain_pose_step``) in float64 on the host
+    from the same f32 operands: the numpy increment."""
+    from icp_variants_tpu_torch.solvers import linear
+
+    return linear._plain_pose_step(*(t.double().cpu() for t in (ata, atb, cs, ct)),
+                                   symmetric).numpy()
+
+
+def ps_ulps(got, want) -> float:
+    """The largest gap of the f32 tensor ``got`` from the float64 ``want``
+    in f32 ulps of each entry's magnitude (inf where ``got`` is not
+    finite; an entry of 0 must be met exactly)."""
+    got = got.double().cpu().numpy()
+    if not np.isfinite(got).all():
+        return float("inf")
+    spacing = np.spacing(np.abs(want).astype(np.float32)).astype(np.float64)
+    return float((np.abs(got - want) / spacing).max())
+
+
+def pose_step_phase() -> dict:
+    """Phase 5c: ``csrc/pose_step.cu`` at the three cells' batches
+    (``PS_SHAPES``) on :func:`ps_inputs`: the increment within
+    ``PS_ULPS`` of the float64 plain tail, two launches equal bit
+    for bit, its CUDA-event ms a launch (``queued_ms``; the profiler's
+    kernel time beside it; at most ``PS_MAX_MS`` at the ETH batch), the
+    plain version on the card (PyTorch ops in f32: device ms queued, host
+    ms a call, kernels a call, and its own gap in ulps, not gated) and
+    both sides' host ms a call. The kernel is bound by its latency: its
+    byte bound is printed beside it. Returns the kernel's row, the colour
+    batch's at the top, the others under their labels."""
+    import torch
+
+    from icp_variants_tpu_torch.solvers import linear
+
+    print("phase 5c: the pose step", flush=True)
+    dev = torch.device("cuda")
+    out = {}
+
+    def host_ms(fn, reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        return ms
+
+    for i, (label, b, metric) in enumerate(PS_SHAPES):
+        sym = metric == "symmetric"
+        ata, atb, cs, ct = ps_inputs(metric, b, 300 + i, dev)
+
+        def kernel():
+            return linear.pose_step(ata, atb, cs, ct, sym)
+
+        def plain():
+            return linear._plain_pose_step(ata, atb, cs, ct, sym)
+
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        check(torch.equal(got, again),
+              f"pose_step {label} ({b} pairs, {metric}): two launches equal bit for bit")
+        want = ps_tail64(ata, atb, cs, ct, sym)
+        ulps = ps_ulps(got, want)
+        check(ulps <= PS_ULPS,
+              f"pose_step {label}: increment within {PS_ULPS} f32 ulps of the "
+              f"float64 plain tail (largest {ulps:.2f})")
+        plain_ulps = ps_ulps(plain(), want)
+        ms = queued_ms(kernel, PS_REPS)
+        prof_ms = kernel_split(kernel, "pose_step", ("kernel",), reps=PS_REPS)["kernel"]
+        plain_ms = queued_ms(plain, PS_PLAIN_REPS)
+        kernel_host_ms, plain_host_ms = host_ms(kernel, PS_REPS), host_ms(plain, PS_PLAIN_REPS)
+        plain_kernels = profile_run(plain, 1.0, cpu=False).get("kernel_launches")
+        nbytes = b * 4 * (36 + 6 + 3 + 3 + 16)
+        bnd = (nbytes / PEAK_BYTES * 1e3, "latency (the byte bound beside it)")
+        if label == "eth":
+            check(ms <= PS_MAX_MS, f"pose_step eth: {ms * 1e3:.2f} us a launch, at most "
+                                   f"{PS_MAX_MS * 1e3:.0f} us")
+        out[label] = dict(
+            ms=ms, profiler_ms=prof_ms, plain_ms=plain_ms, host_ms=kernel_host_ms,
+            plain_host_ms=plain_host_ms, plain_kernels=plain_kernels, bound=bnd, err=ulps,
+            plain_err=plain_ulps, shapes=dict(pairs=b, metric=metric),
+            plain_on="every pair, on the card (PyTorch ops in f32: solve_ex and the "
+                     "recovery)")
+        print(f"  pose_step {label} ({b} pairs, {metric}): {ms * 1e3:.2f} us a launch (queued "
+              f"CUDA events; the profiler's kernel time {prof_ms * 1e3:.2f} us), byte bound "
+              f"{bnd[0] * 1e3:.3f} us; host {kernel_host_ms:.4f} ms a call; plain on the card "
+              f"{plain_ms:.4f} ms of device time, {plain_host_ms:.4f} ms of host time and "
+              f"{plain_kernels} kernels a call; largest gap from the float64 tail {ulps:.2f} "
+              f"ulps (plain f32 {plain_ulps:.2f})", flush=True)
+    row = dict(out["colour"])
+    row.update({k: v for k, v in out.items() if k != "colour"})
+    row["err"] = max(r["err"] for r in out.values())
+    return {"pose_step": row}
 
 
 def dense_queries(sources, pose):
@@ -4681,6 +4814,9 @@ def record(rows_eth, launches_eth, rows, launches, sharded) -> None:
         "normal_equations": ("icp_variants_tpu_torch/csrc/normal_equations.cu",
                              "none: the JAX package leaves the solvers' normal equations to "
                              "XLA (icp_variants_tpu/solvers/linear.py)"),
+        "pose_step": ("icp_variants_tpu_torch/csrc/pose_step.cu",
+                      "none: the JAX package leaves the solvers' 6 x 6 solve and pose algebra "
+                      "to XLA (icp_variants_tpu/solvers/linear.py)"),
     }
     kernels = []
     for name, (src, replaces) in sources_of.items():
@@ -4759,6 +4895,18 @@ def record(rows_eth, launches_eth, rows, launches, sharded) -> None:
                                   plain_ms=r["plain_ms"], library_ms=r["library_ms"],
                                   bound_ms=r["bound"][0], bound_by=r["bound"][1],
                                   max_abs_err=r["err"], shapes=r["shapes"])
+        if name == "pose_step":
+            entry.update(profiler_ms=c["profiler_ms"], host_ms=c["host_ms"],
+                         plain_host_ms=c["plain_host_ms"], plain_kernels=c["plain_kernels"],
+                         plain_err=c["plain_err"], err_unit="f32 ulps of the entry's magnitude")
+            for key in ("projective", "eth"):
+                r = c[key]
+                entry[key] = dict(ms=r["ms"], profiler_ms=r["profiler_ms"],
+                                  plain_ms=r["plain_ms"], host_ms=r["host_ms"],
+                                  plain_host_ms=r["plain_host_ms"],
+                                  plain_kernels=r["plain_kernels"], bound_ms=r["bound"][0],
+                                  bound_by=r["bound"][1], max_abs_err=r["err"],
+                                  plain_err=r["plain_err"], shapes=r["shapes"])
         if name == "projective_window_search":
             entry["mode"] = "pixel_window"
             entry["split_ms"] = c["split_ms"]

@@ -47,13 +47,14 @@ KERNEL_DIMS = (3, 6)
 
 # kernel name -> (source file, C function, ctypes argtypes); every C
 # function ends with (..., void* stream), and all but
-# projective_window_search (geometry only) with (..., int D, void* stream).
+# projective_window_search (geometry only), normal_equations and pose_step
+# (the solvers' f32 sums and 6 x 6 systems) with (..., int D, void* stream).
 # kd_block_search and visited_search take, just before D, the work counters
 # they add to (null: none; runtime/spans.py).
 # dense_nn_search and pruned_nn_search are two entries of one source;
 # visited_ablate is the measurement kernel of scripts/knn_ablate.py;
 # normal_equations (solvers/linear.py) is the linear solvers' reduction, on
-# f32 rows whatever D.
+# f32 rows whatever D, and pose_step their 6 x 6 solve and increment.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "box_topk": ("box_topk.cu", "box_topk_launch", [_P] * 6 + [_I] * 5 + [_P]),
@@ -84,6 +85,8 @@ KERNELS = {
     "normal_equations": (
         "normal_equations.cu", "normal_equations_launch",
         [_P] * 4 + [ctypes.c_longlong] * 8 + [_P] * 8 + [_I] * 3 + [_F] * 2 + [_I, _P]),
+    "pose_step": (
+        "pose_step.cu", "pose_step_launch", [_P] * 6 + [_I, ctypes.c_double, _I, _P]),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

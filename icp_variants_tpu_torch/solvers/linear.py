@@ -25,6 +25,12 @@ builds each row in registers; on a CPU tensor the plain version builds the
 Jacobian columns and sums them (:func:`_accumulate_normal_equations_soa`).
 The sums run in the ``icp.reduce`` span of
 :mod:`icp_variants_tpu_torch.runtime.spans`.
+
+The point-to-plane, symmetric and GICP solvers' tail -- the 6x6 solve and
+the increment's recovery -- is one
+launch of ``csrc/pose_step.cu`` an iteration on a CUDA tensor
+(:func:`pose_step_cuda`, in float64 inside the kernel); on a CPU tensor
+the plain version runs it as PyTorch ops (:func:`_plain_pose_step`).
 """
 
 from __future__ import annotations
@@ -167,25 +173,24 @@ def normal_equation_chunks(n: int) -> tuple[int, int]:
 
 
 def _check_operand(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
-                   rows: bool = False) -> None:
+                   rows: bool = False, kernel: str = "normal_equations") -> None:
     """Raise unless ``t`` has ``dtype`` and ``shape`` and is contiguous
     (with ``rows``: along its last axis only, so the rows of a wider table
     pass)."""
     if t.dtype != dtype:
-        raise ValueError(f"normal_equations: {name} must be {dtype}, got {t.dtype}")
+        raise ValueError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:
-        raise ValueError(f"normal_equations: {name} must have shape {shape}, "
-                         f"got {tuple(t.shape)}")
+        raise ValueError(f"{kernel}: {name} must have shape {shape}, got {tuple(t.shape)}")
     if not (t.stride(-1) == 1 if rows else t.is_contiguous()):
-        raise ValueError(f"normal_equations: {name} must be contiguous"
+        raise ValueError(f"{kernel}: {name} must be contiguous"
                          + (" along its last axis" if rows else ""))
 
 
-def _require_cuda(*ts) -> None:
+def _require_cuda(*ts, kernel: str = "normal_equations") -> None:
     """Raise unless every tensor given (None aside) lies on a CUDA device."""
     for t in ts:
         if t is not None and not t.is_cuda:
-            raise ValueError(f"normal_equations: expected CUDA tensors, got {t.device}")
+            raise ValueError(f"{kernel}: expected CUDA tensors, got {t.device}")
 
 
 def normal_equations_cuda(
@@ -268,6 +273,93 @@ def _solve6(ata: torch.Tensor, atb: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_ex(ata, atb[..., None])[0][..., 0]
 
 
+# The diagonal terms of the solves: point-to-plane and GICP, and the
+# symmetric solve's Tikhonov term (ICPOptimizer.h:863).
+DIAG_EULER = 1e-12
+DIAG_SYMMETRIC = TIKHONOV_SYMMETRIC ** 2
+
+
+def _plain_pose_step(ata, atb, center_src, center_tgt, symmetric: bool) -> torch.Tensor:
+    """:func:`pose_step` as PyTorch ops in the inputs' dtype, on their
+    device: ``solve_ex``, then the increment's recovery -- Euler angles
+    R = Rx(a) Ry(b) Rz(g) about ``center_tgt`` (ICPOptimizer.h:768-779), or
+    the rotation recovered from the symmetric solve's a*tan(theta)
+    parametrization, composed as ``T(mu_t) . R . T(t) . R . T(-mu_s)``
+    (ICPOptimizer.h:866-898)."""
+    if not symmetric:
+        x = _solve6(ata + DIAG_EULER * _eye6(ata), atb)
+        R = se3.euler_xyz_to_matrix(x[..., 0], x[..., 1], x[..., 2])
+        pose_centered = se3.pose_matrix(R, x[..., 3:6])
+        return (
+            se3.translation_matrix(center_tgt) @ pose_centered
+            @ se3.translation_matrix(-center_tgt)
+        )
+    x = _solve6(ata + DIAG_SYMMETRIC * _eye6(ata), atb)
+    a_tilde, t_tilde = x[..., :3], x[..., 3:6]
+    tan_theta = torch.linalg.norm(a_tilde, dim=-1)
+    big = tan_theta > 1e-12
+    safe_tan = torch.where(big, tan_theta, 1.0)
+    axis = a_tilde / safe_tan[..., None]
+    sin_theta = tan_theta / torch.sqrt(1.0 + tan_theta * tan_theta)
+    cos_theta = torch.where(big, sin_theta / safe_tan, 1.0)
+    t = t_tilde * cos_theta[..., None]
+    eye = torch.eye(3, dtype=x.dtype, device=x.device)
+    R = torch.where(big[..., None, None], se3.rodrigues_matrix(axis, sin_theta, cos_theta), eye)
+    rod = se3.pose_matrix(R, torch.zeros_like(t))
+    return (
+        se3.translation_matrix(center_tgt) @ rod @ se3.translation_matrix(t) @ rod
+        @ se3.translation_matrix(-center_src)
+    )
+
+
+def pose_step_cuda(
+    ata: torch.Tensor,                  # (B, 6, 6) f32
+    atb: torch.Tensor,                  # (B, 6) f32
+    center_src: torch.Tensor,           # (B, 3) f32
+    center_tgt: torch.Tensor,           # (B, 3) f32
+    symmetric: bool,
+    solution: torch.Tensor | None = None,  # (B, 6) f64 out, or None
+) -> torch.Tensor:
+    """The (B, 4, 4) f32 increment of :func:`_plain_pose_step` by one launch
+    of ``csrc/pose_step.cu`` on the current stream, computed in float64 and
+    rounded once. ``solution``, a test hook, receives the 6-vector solve
+    (the rounded increment cannot show how well an ill-conditioned system
+    was solved). Every operand contiguous. Raises before the launch on any
+    other dtype, shape, layout or device (the device last)."""
+    b = ata.shape[0]
+    what = "pose_step"
+    _check_operand("ata", ata, torch.float32, (b, 6, 6), kernel=what)
+    _check_operand("atb", atb, torch.float32, (b, 6), kernel=what)
+    _check_operand("center_src", center_src, torch.float32, (b, 3), kernel=what)
+    _check_operand("center_tgt", center_tgt, torch.float32, (b, 3), kernel=what)
+    if solution is not None:
+        _check_operand("solution", solution, torch.float64, (b, 6), kernel=what)
+    _require_cuda(ata, atb, center_src, center_tgt, solution, kernel=what)
+    increment = torch.empty((b, 4, 4), dtype=torch.float32, device=ata.device)
+    _cuda.launch(
+        "pose_step", ata, atb, center_src, center_tgt, increment, solution, b,
+        DIAG_SYMMETRIC if symmetric else DIAG_EULER,
+        int(symmetric))  # the kernel's PS_EULER = 0, PS_SYMMETRIC = 1
+    return increment
+
+
+def pose_step(ata, atb, center_src, center_tgt, symmetric: bool) -> torch.Tensor:
+    """The increment of one linear step: ``x`` solving ``(ata + diag I) x =
+    atb`` (diag :data:`DIAG_SYMMETRIC` or :data:`DIAG_EULER`), and the
+    increment recovered from it -- the symmetric solve's about the means
+    ``center_src`` and ``center_tgt``, else Euler angles about
+    ``center_tgt``. (..., 6, 6), (..., 6), (..., 3) -> (..., 4, 4). A CPU
+    tensor runs the plain version, :func:`_plain_pose_step`; a CUDA tensor
+    the kernel, :func:`pose_step_cuda` (f32)."""
+    if ata.device.type == "cpu":
+        return _plain_pose_step(ata, atb, center_src, center_tgt, symmetric)
+    increment = pose_step_cuda(
+        ata.reshape(-1, 6, 6).contiguous(), atb.reshape(-1, 6).contiguous(),
+        center_src.reshape(-1, 3).contiguous(), center_tgt.reshape(-1, 3).contiguous(),
+        symmetric)
+    return increment.reshape(*ata.shape[:-2], 4, 4)
+
+
 def estimate_pose_point_to_plane(
     src: torch.Tensor,          # (..., N, 3) matched transformed source points
     tgt: torch.Tensor,          # (..., N, 3) matched target points
@@ -282,12 +374,7 @@ def estimate_pose_point_to_plane(
     center = se3.masked_mean(tgt, valid, group=group)
     ata, atb = normal_equations(src, tgt, tgt_normals, None, weights, valid, center, center,
                                 group)
-    x = _solve6(ata + 1e-12 * _eye6(ata), atb)
-    R = se3.euler_xyz_to_matrix(x[..., 0], x[..., 1], x[..., 2])
-    pose_centered = se3.pose_matrix(R, x[..., 3:6])
-    return (
-        se3.translation_matrix(center) @ pose_centered @ se3.translation_matrix(-center)
-    )
+    return pose_step(ata, atb, center, center, symmetric=False)
 
 
 def estimate_pose_symmetric(
@@ -308,23 +395,7 @@ def estimate_pose_symmetric(
     mean_tgt = se3.masked_mean(tgt, valid, group=group)
     ata, atb = normal_equations(src, tgt, tgt_normals, src_normals, weights, valid, mean_src,
                                 mean_tgt, group)
-    x = _solve6(ata + (TIKHONOV_SYMMETRIC ** 2) * _eye6(ata), atb)
-
-    a_tilde, t_tilde = x[..., :3], x[..., 3:6]
-    tan_theta = torch.linalg.norm(a_tilde, dim=-1)
-    big = tan_theta > 1e-12
-    safe_tan = torch.where(big, tan_theta, 1.0)
-    axis = a_tilde / safe_tan[..., None]
-    sin_theta = tan_theta / torch.sqrt(1.0 + tan_theta * tan_theta)
-    cos_theta = torch.where(big, sin_theta / safe_tan, 1.0)
-    t = t_tilde * cos_theta[..., None]
-    eye = torch.eye(3, dtype=x.dtype, device=x.device)
-    R = torch.where(big[..., None, None], se3.rodrigues_matrix(axis, sin_theta, cos_theta), eye)
-    rod = se3.pose_matrix(R, torch.zeros_like(t))
-    return (
-        se3.translation_matrix(mean_tgt) @ rod @ se3.translation_matrix(t) @ rod
-        @ se3.translation_matrix(-mean_src)
-    )
+    return pose_step(ata, atb, mean_src, mean_tgt, symmetric=True)
 
 
 def _cholesky3(m: torch.Tensor) -> torch.Tensor:
@@ -392,9 +463,4 @@ def estimate_pose_gicp(
     rows = Lt @ _point_rows(s)                                   # (..., N, 3, 6)
     rhs = (Lt @ (d - s)[..., None])[..., 0]                      # (..., N, 3)
     ata, atb = _accumulate_normal_equations(rows, rhs, w[..., None].expand_as(rhs), group)
-    x = _solve6(ata + 1e-12 * _eye6(ata), atb)
-    R = se3.euler_xyz_to_matrix(x[..., 0], x[..., 1], x[..., 2])
-    pose_centered = se3.pose_matrix(R, x[..., 3:6])
-    return (
-        se3.translation_matrix(center) @ pose_centered @ se3.translation_matrix(-center)
-    )
+    return pose_step(ata, atb, center, center, symmetric=False)

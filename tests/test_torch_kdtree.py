@@ -524,7 +524,8 @@ def _c_params(src: str, fn: str) -> list[str]:
 def _ctype_of(c_type: str):
     if c_type.endswith("*"):
         return ctypes.c_void_p
-    return {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}[c_type]
+    return {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float,
+            "double": ctypes.c_double}[c_type]
 
 
 @pytest.mark.parametrize("name", sorted(_cuda.KERNELS))
